@@ -1,0 +1,107 @@
+"""Borůvka spanning forest on torch tensors (``repro.core.forest``'s
+Borůvka half).
+
+Borůvka-style minimum-edge hooking with pointer-doubling contraction:
+
+  repeat until nothing hooks (at most ceil(log2 n) + 2 rounds):
+    1. every component picks its minimum-index incident cross edge
+       (the ``boruvka_round`` op: one pass over the edge buffer)
+    2. components hook along the picked edge; mutual 2-cycles (the only
+       possible cycles under distinct edge keys) are broken by id order
+    3. labels are flattened by pointer doubling
+
+The round loop is a Python ``while``: reading ``changed`` costs one host
+sync per round, so a forest pass of r rounds syncs r times.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.graph.datastructs import INF32, INT, EdgeList, take
+from repro_torch.kernels.boruvka_round.ops import boruvka_round
+
+
+def _ceil_log2(n: int) -> int:
+    return max(1, math.ceil(math.log2(max(n, 2))))
+
+
+def _shortcut(parent: torch.Tensor, steps: int) -> torch.Tensor:
+    """Full pointer-doubling path compression."""
+    for _ in range(steps):
+        parent = parent[parent]
+    return parent
+
+
+def hook_round(src, dst, valid, labels, n: int):
+    """One Borůvka round on path-compressed ``labels``.
+
+    Returns ``(labels', chosen, hooked)``: the new labels, int32[n] edge
+    slots that join the forest (``E``, one past the buffer, where a
+    component did not hook) and bool[n] which components hooked.
+    """
+    E = src.shape[0]
+    best = boruvka_round(src, dst, valid, labels, n)
+    has = best < INF32
+    e = torch.where(has, best, 0)
+    # O(n) gathers of the chosen edges' endpoint labels
+    cu = take(labels, take(src, e))
+    cv = take(labels, take(dst, e))
+    comp = torch.arange(n, dtype=INT, device=src.device)
+    other = torch.where(cu == comp, cv, cu)
+    prop = torch.where(has, other, comp)
+    # distinct edge keys => only 2-cycles possible; break them by id order
+    mutual = prop[prop] == comp
+    hook = has & (~mutual | (comp < prop))
+    parent = torch.where(hook, prop, comp)
+    chosen = torch.where(hook, e, E)
+    parent = _shortcut(parent, _ceil_log2(n))
+    return parent[labels], chosen, hook
+
+
+def _forest_impl(src, dst, mask, n: int, init_labels=None):
+    """Borůvka hooking. ``init_labels`` warm-starts from an existing
+    partition (path-compressed component labels): the returned forest then
+    contains only edges that merge ACROSS the initial components. Returns
+    ``(forest bool[E], labels int32[n], rounds)``."""
+    E = src.shape[0]
+    log_n = _ceil_log2(n)
+    # Self-loops are never cross edges; masked slots never participate.
+    valid = mask & (src != dst)
+    labels = (torch.arange(n, dtype=INT, device=src.device)
+              if init_labels is None else init_labels.to(INT))
+    forest = torch.zeros(E + 1, dtype=torch.bool, device=src.device)
+    changed, rounds = True, 0
+    while changed and rounds < log_n + 2:
+        labels, chosen, hook = hook_round(src, dst, valid, labels, n)
+        forest[chosen] = True  # slot E is the dump slot, sliced off below
+        changed = bool(hook.any())  # the round's one host sync
+        rounds += 1
+    return forest[:E], labels, rounds
+
+
+def spanning_forest(edges: EdgeList):
+    """Returns (forest_mask bool[E], labels int32[n]).
+
+    ``forest_mask`` selects a spanning forest of the masked subgraph;
+    ``labels`` maps each vertex to its connected-component representative.
+    """
+    forest, labels, _ = spanning_forest_ex(edges)
+    return forest, labels
+
+
+def spanning_forest_ex(edges: EdgeList, init_labels=None):
+    """(forest_mask, labels, rounds_used); optional warm-start labels.
+
+    With ``init_labels`` the forest spans only the *contraction* of the
+    initial partition by the edge set (edges internal to an initial
+    component are never selected)."""
+    return _forest_impl(edges.src, edges.dst, edges.mask, edges.n_nodes,
+                        init_labels=init_labels)
+
+
+def connected_components(edges: EdgeList):
+    """Component labels only (same hooking machinery)."""
+    _, labels, _ = spanning_forest_ex(edges)
+    return labels

@@ -1,0 +1,13 @@
+from repro_torch.graph import generators
+from repro_torch.graph.datastructs import (
+    INF32,
+    INT,
+    EdgeList,
+    admission_capacity,
+    compact_edges,
+    concat_edges,
+    pad_edges,
+)
+
+__all__ = ["INF32", "INT", "EdgeList", "admission_capacity", "compact_edges",
+           "concat_edges", "pad_edges", "generators"]

@@ -1,0 +1,153 @@
+"""Fixed-shape graph containers on torch tensors.
+
+The port's counterpart of ``repro.graph.datastructs``: every stage runs on
+fixed-capacity edge buffers with a validity mask, so buffers of one shape
+bucket are interchangeable. Masked slots hold in-range zeros.
+
+Two JAX habits need spelling out here, because torch does not share them:
+
+* an out-of-range gather index is clamped by JAX and an error in torch —
+  ``take`` is the clamped gather;
+* ``.at[idx].set(..., mode="drop")`` drops out-of-range scatter indices —
+  the port scatters into a buffer with one dump slot and slices it off.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+INT = torch.int32
+INF32 = int(np.iinfo(np.int32).max)
+INT32_MIN = int(np.iinfo(np.int32).min)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Without a card and without an explicit device, raise — never
+    fall back to the CPU quietly."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` with JAX's gather semantics: indices clamped into range."""
+    return x[idx.clamp(0, x.shape[0] - 1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeList:
+    """Padded undirected edge list.
+
+    src, dst : int32[capacity]   endpoints (zeros where ~mask)
+    mask     : bool[capacity]    which slots hold real edges
+    n_nodes  : int               vertex count
+    """
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    mask: torch.Tensor
+    n_nodes: int
+
+    @property
+    def capacity(self) -> int:
+        return self.src.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    def num_edges(self) -> int:
+        return int(self.mask.sum())
+
+    @staticmethod
+    def from_arrays(src, dst, n_nodes: int, capacity: int | None = None,
+                    device=None) -> "EdgeList":
+        dev = resolve_device(device)
+        src = torch.tensor(np.asarray(src, np.int32), device=dev)
+        dst = torch.tensor(np.asarray(dst, np.int32), device=dev)
+        mask = torch.ones(src.shape, dtype=torch.bool, device=dev)
+        el = EdgeList(src, dst, mask, n_nodes)
+        if capacity is not None and capacity != el.capacity:
+            el = pad_edges(el, capacity)
+        return el
+
+
+def pad_edges(edges: EdgeList, capacity: int) -> EdgeList:
+    """Grow (or shrink, raising on real edge loss) to `capacity` slots."""
+    cur = edges.capacity
+    if capacity == cur:
+        return edges
+    if capacity > cur:
+        z = torch.zeros(capacity - cur, dtype=INT, device=edges.device)
+        return EdgeList(
+            torch.cat([edges.src, z]),
+            torch.cat([edges.dst, z]),
+            torch.cat([edges.mask, z.bool()]),
+            edges.n_nodes,
+        )
+    n_real = edges.num_edges()
+    if n_real > capacity:
+        raise ValueError(
+            f"pad_edges: shrinking to {capacity} slots would drop "
+            f"{n_real - capacity} of {n_real} real edges"
+        )
+    return compact_edges(edges, capacity)
+
+
+def admission_capacity(m: int, minimum: int = 16) -> int:
+    """Smallest power of two >= max(m, minimum): the shape-bucket helper."""
+    m = max(int(m), minimum, 1)
+    return 1 << (m - 1).bit_length()
+
+
+def compact_edges(edges: EdgeList, capacity: int,
+                  keep: torch.Tensor | None = None) -> EdgeList:
+    """Scatter the selected edges to the front of a fresh `capacity`-slot
+    buffer. O(E) cumsum + scatter; selected edges beyond `capacity` are
+    dropped (into the dump slot), so the caller must guarantee the selection
+    fits (certificates are bounded by construction)."""
+    sel = edges.mask if keep is None else (edges.mask & keep)
+    pos = torch.cumsum(sel, 0, dtype=INT) - 1
+    # every index >= capacity drops, not only the unselected ones
+    idx = torch.where(sel & (pos < capacity), pos, capacity)
+    dev = edges.device
+    out_src = torch.zeros(capacity + 1, dtype=INT, device=dev)
+    out_dst = torch.zeros(capacity + 1, dtype=INT, device=dev)
+    out_mask = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
+    out_src[idx] = edges.src
+    out_dst[idx] = edges.dst
+    out_mask[idx] = True
+    return EdgeList(out_src[:capacity], out_dst[:capacity],
+                    out_mask[:capacity], edges.n_nodes)
+
+
+def concat_edges(a: EdgeList, b: EdgeList) -> EdgeList:
+    if a.n_nodes != b.n_nodes:
+        raise ValueError(f"n_nodes differ: {a.n_nodes} vs {b.n_nodes}")
+    return EdgeList(
+        torch.cat([a.src, b.src]),
+        torch.cat([a.dst, b.dst]),
+        torch.cat([a.mask, b.mask]),
+        a.n_nodes,
+    )
+
+
+def build_csr(src: np.ndarray, dst: np.ndarray, n_nodes: int):
+    """Host-side CSR over the *symmetrized* edge list: (indptr, indices,
+    edge_id). Used by the host DFS."""
+    e = len(src)
+    asrc = np.concatenate([src, dst])
+    adst = np.concatenate([dst, src])
+    eid = np.concatenate([np.arange(e), np.arange(e)])
+    order = np.lexsort((adst, asrc))
+    asrc, adst, eid = asrc[order], adst[order], eid[order]
+    indptr = np.zeros(n_nodes + 1, np.int64)
+    np.add.at(indptr, asrc + 1, 1)
+    indptr = np.cumsum(indptr)
+    return indptr, adst.astype(np.int32), eid.astype(np.int32)

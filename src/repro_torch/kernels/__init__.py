@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Each kernel package keeps the JAX package's layout: ``ref.py`` holds the
+plain PyTorch version, ``kernel.py`` the wrapper that launches the CUDA
+kernel (sources in ``repro_torch/csrc``), ``ops.py`` the dispatch: the
+kernel for a CUDA tensor, the plain version for a CPU tensor.
+"""
+from repro_torch.kernels.boruvka_round import kernel as _boruvka_kernel
+from repro_torch.kernels.segment_min import kernel as _segment_min_kernel
+
+#: every kernel wrapper that counts its launches, by kernel name
+LAUNCHERS = {
+    "boruvka_round": _boruvka_kernel.boruvka_round_cuda,
+    "segment_min": _segment_min_kernel.segment_min_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in LAUNCHERS.values():
+        fn.launches = 0

@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels.
+
+The kernels live in ``repro_torch/csrc/*.cu`` with a plain C interface.
+At first use ``nvcc`` compiles them for Hopper (``sm_90a``) into one shared
+library under ``<repo>/build/kernels/`` and ``ctypes`` loads it: no PyTorch
+headers, so the build takes seconds. The library's file name carries a hash
+of the sources, the flags and nvcc's version, so a change to any of them
+builds anew. A failed build raises; there is no
+fallback. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "connectivity_rounds.cu",)
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # src, dst, mask, labels, best, e, n_labels, num_segments, stream
+    "repro_boruvka_round": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_int, _P],
+    # keys, ids, out, e, num_segments, stream
+    "repro_segment_min": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def lib_path() -> Path:
+    """``build/kernels/librepro_torch_kernels.<hash>.so``, the hash taken
+    over the sources, ``NVCC_FLAGS`` and ``nvcc --version``."""
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    version = subprocess.run([nvcc(), "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h.update(version.encode())
+    return BUILD_DIR / f"librepro_torch_kernels.{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> dict:
+    """Compile the sources into ``lib_path()`` unless that file is there.
+    Returns ``{"built", "path", "seconds", "log"}``; ``log`` holds nvcc's
+    output, with ptxas's register and spill figures."""
+    path = lib_path()
+    if not force and path.is_file():
+        return {"built": False, "path": path, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, path)  # atomic: no process loads a half-written file
+    return {"built": True, "path": path, "seconds": seconds, "log": log}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; raise on a
+    non-zero launch code."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, name)(*args, stream)
+    if code != 0:
+        msg = lib.repro_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

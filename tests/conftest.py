@@ -20,6 +20,9 @@ if settings is not None:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skips (inside a fixture) "
+        "where there is none")
 
 
 @pytest.fixture

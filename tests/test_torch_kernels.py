@@ -1,0 +1,198 @@
+"""Port parity of the kernel modules on the CPU: the port's plain versions
+and dispatch against the JAX package's Pallas kernels (interpret mode) and
+jnp oracles, on the shapes of tests/test_kernels.py.
+
+Every output is an integer, so the stated tolerance is exact equality.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.graph import generators as gen
+from repro.graph.datastructs import EdgeList as JEdgeList
+from repro.kernels.boruvka_round.kernel import boruvka_round_pallas
+from repro.kernels.boruvka_round.ops import (
+    boruvka_round_bytes as j_boruvka_round_bytes,
+)
+from repro.kernels.boruvka_round.ref import boruvka_round_ref as j_boruvka_ref
+from repro.kernels.segment_min.kernel import segment_min_pallas
+from repro.kernels.segment_min.ref import segment_min_ref as j_segment_min_ref
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.boruvka_round import (
+    EDGE_SLOT_BYTES,
+    boruvka_round,
+    boruvka_round_bytes,
+    kernel_path,
+)
+from repro_torch.kernels.boruvka_round.ref import boruvka_round_ref
+from repro_torch.kernels.segment_min import segment_min
+from repro_torch.kernels.segment_min.kernel import check_key_space
+from repro_torch.kernels.segment_min.ref import segment_min_ref
+
+INF32 = np.iinfo(np.int32).max
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _jax_both(pallas_fn, ref_fn, *args):
+    """The JAX kernel in interpret mode and its oracle, which must agree."""
+    got = np.asarray(pallas_fn(*args, interpret=True))
+    want = np.asarray(ref_fn(*args))
+    assert np.array_equal(got, want)
+    return want
+
+
+def _segment_min_case(keys, ids, n):
+    want = _jax_both(segment_min_pallas, j_segment_min_ref,
+                     jnp.asarray(keys), jnp.asarray(ids), n)
+    for fn in (segment_min_ref, segment_min):
+        got = fn(_t(keys), _t(ids), n)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "e,n", [(7, 3), (100, 30), (1024, 512), (1500, 513), (4096, 1024), (33, 1)]
+)
+def test_segment_min_shapes(e, n):
+    rng = np.random.default_rng(e * 31 + n)
+    keys = rng.integers(0, 1 << 20, e).astype(np.int32)
+    ids = rng.integers(0, n, e).astype(np.int32)
+    _segment_min_case(keys, ids, n)
+
+
+def test_segment_min_empty_segments_inf():
+    _segment_min_case(np.array([5, 3], np.int32), np.array([0, 0], np.int32), 4)
+
+
+def test_segment_min_drops_out_of_range_ids_and_inf_keys():
+    rng = np.random.default_rng(7)
+    e, n = 600, 128
+    keys = rng.integers(-50, 1 << 15, e).astype(np.int32)
+    keys[::7] = INF32
+    ids = rng.integers(-20, n + 20, e).astype(np.int32)
+    ids[:3] = [np.iinfo(np.int32).min, INF32, n]
+    _segment_min_case(keys, ids, n)
+
+
+def _edge_buffer(e, n, seed, self_loop_frac=0.1, mask_frac=0.2):
+    """tests/test_kernels.py's masked multigraph buffer: duplicates,
+    self-loops, tombstones."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    loops = rng.random(e) < self_loop_frac
+    dst = np.where(loops, src, dst)
+    if e >= 8:
+        src[e // 2 : e // 2 + e // 4] = src[: e // 4]
+        dst[e // 2 : e // 2 + e // 4] = dst[: e // 4]
+    mask = rng.random(e) >= mask_frac
+    return src, dst, mask
+
+
+def _boruvka_case(src, dst, mask, labels, n):
+    want = _jax_both(boruvka_round_pallas, j_boruvka_ref, jnp.asarray(src),
+                     jnp.asarray(dst), jnp.asarray(mask), jnp.asarray(labels),
+                     n)
+    for fn in (boruvka_round_ref, boruvka_round):
+        got = fn(_t(src), _t(dst), _t(mask), _t(labels), n)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "e,n", [(7, 5), (100, 30), (1024, 512), (1500, 513), (2048, 1024), (33, 1)]
+)
+def test_boruvka_round_shapes(e, n):
+    rng = np.random.default_rng(e * 17 + n)
+    src, dst, mask = _edge_buffer(e, n, seed=e + n)
+    labels = rng.integers(0, n, n).astype(np.int32)
+    _boruvka_case(src, dst, mask, labels, n)
+
+
+def test_boruvka_round_all_masked_or_loops():
+    src = np.array([0, 1, 2, 3], np.int32)
+    dst = np.array([1, 1, 3, 0], np.int32)  # slot 1 is a self-loop
+    mask = np.array([False, True, False, False])
+    labels = np.arange(5, dtype=np.int32)
+    _boruvka_case(src, dst, mask, labels, 5)
+    out = boruvka_round(_t(src), _t(dst), _t(mask), _t(labels), 5)
+    assert (out.numpy() == INF32).all()
+
+
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_boruvka_round_parity_on_failure_scenarios(idx):
+    sc = gen.failure_scenarios()[idx]
+    el = JEdgeList.from_arrays(sc["src"], sc["dst"], sc["n"])
+    n = el.n_nodes
+    rng = np.random.default_rng(idx)
+    for labels in (np.arange(n, dtype=np.int32),
+                   rng.integers(0, n, n).astype(np.int32)):
+        _boruvka_case(np.asarray(el.src), np.asarray(el.dst),
+                      np.asarray(el.mask), labels, n)
+
+
+def test_key_space_guard_rejects_overflow():
+    ok = torch.tensor([1, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match="segment-id space"):
+        segment_min(ok, torch.zeros(2, dtype=torch.int32),
+                    num_segments=(1 << 31) - 10)
+    with pytest.raises(ValueError, match="segment-id space"):
+        boruvka_round(ok, ok, torch.ones(2, dtype=torch.bool),
+                      torch.zeros(1, dtype=torch.int32),
+                      num_segments=(1 << 31) - 10)
+    with pytest.raises(ValueError, match="edge-key space"):
+        check_key_space((1 << 31) - 10, 4)
+    check_key_space(1 << 20, 1 << 20)
+    # the same bounds as the JAX guard: the last accepted shapes agree
+    from repro.kernels.segment_min.kernel import check_key_space as j_check
+
+    for e, n in ((INF32 - 1024, 1), (1, INF32 - 512)):
+        check_key_space(e, n)
+        j_check(e, n)
+    for e, n in ((INF32 - 1023, 1), (1, INF32 - 511)):
+        with pytest.raises(ValueError):
+            check_key_space(e, n)
+        with pytest.raises(ValueError):
+            j_check(e, n)
+
+
+def test_ops_validate_inputs_and_dispatch_on_cpu():
+    reset_launch_counts()
+    keys = torch.tensor([3, 1], dtype=torch.int32)
+    ids = torch.tensor([0, 0], dtype=torch.int32)
+    assert segment_min(keys, ids, 2).tolist() == [1, INF32]
+    with pytest.raises(TypeError):
+        segment_min(keys.long(), ids, 2)
+    with pytest.raises(ValueError):
+        segment_min(keys, ids[:1], 2)
+    with pytest.raises(ValueError):
+        segment_min(torch.arange(4, dtype=torch.int32)[::2], ids, 2)
+    src = torch.tensor([0, 1], dtype=torch.int32)
+    dst = torch.tensor([1, 2], dtype=torch.int32)
+    msk = torch.tensor([True, True])
+    labels = torch.arange(3, dtype=torch.int32)
+    assert boruvka_round(src, dst, msk, labels, 3).tolist() == [0, 0, 1]
+    with pytest.raises(TypeError):
+        boruvka_round(src, dst, msk.int(), labels, 3)
+    assert kernel_path("cpu") == "ref" and kernel_path("cuda") == "cuda"
+    # the CPU path runs the plain version and launches nothing
+    assert launch_counts() == {"boruvka_round": 0, "segment_min": 0}
+
+
+def test_round_byte_model_matches_jax():
+    """With every slot live the round moves the JAX package's fused byte
+    model (9 B per slot) plus the labels read and the result written; a
+    masked slot costs only its mask byte."""
+    assert EDGE_SLOT_BYTES == 9
+    for e, n in ((1, 1), (1000, 64), (1 << 24, 1 << 17)):
+        assert boruvka_round_bytes(e, n, e) == j_boruvka_round_bytes(
+            e, fused=True) + 8 * n
+        assert boruvka_round_bytes(e, n, 0) == e + 8 * n
+        assert (boruvka_round_bytes(e, n, e // 2)
+                == boruvka_round_bytes(e, n, 0) + 8 * (e // 2))

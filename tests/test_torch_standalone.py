@@ -1,0 +1,36 @@
+"""The port stands alone: importing ``repro_torch`` (every module of it) and
+``chip_smoke``'s module graph pulls in neither JAX nor the JAX package."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+sys.path.insert(0, {root!r})
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(root=str(ROOT))],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
+    assert loaded >= 20  # every module of the package was imported
