@@ -5,6 +5,14 @@ never JAX, and nothing of ``repro``. Entry points run on the card unless the
 caller passes ``device="cpu"``; the hand-written Hopper kernels live in
 ``repro_torch/csrc`` and are built at first use.
 """
-from repro_torch.core.api import find_bridges
+from repro_torch.core.api import (
+    analyze,
+    find_bcc,
+    find_bridge_tree,
+    find_bridges,
+    find_cuts,
+    find_two_ecc,
+)
 
-__all__ = ["find_bridges"]
+__all__ = ["analyze", "find_bcc", "find_bridge_tree", "find_bridges",
+           "find_cuts", "find_two_ecc"]

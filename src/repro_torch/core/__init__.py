@@ -1,3 +1,11 @@
-from repro_torch.core.api import find_bridges
+from repro_torch.core.api import (
+    analyze,
+    find_bcc,
+    find_bridge_tree,
+    find_bridges,
+    find_cuts,
+    find_two_ecc,
+)
 
-__all__ = ["find_bridges"]
+__all__ = ["analyze", "find_bcc", "find_bridge_tree", "find_bridges",
+           "find_cuts", "find_two_ecc"]

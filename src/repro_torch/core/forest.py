@@ -1,5 +1,5 @@
-"""Borůvka spanning forest on torch tensors (``repro.core.forest``'s
-Borůvka half).
+"""Spanning forests on torch tensors (``repro.core.forest``): Borůvka
+hooking, and the scan-first-search (BFS-layer) forest further down.
 
 Borůvka-style minimum-edge hooking with pointer-doubling contraction:
 
@@ -10,8 +10,8 @@ Borůvka-style minimum-edge hooking with pointer-doubling contraction:
        possible cycles under distinct edge keys) are broken by id order
     3. labels are flattened by pointer doubling
 
-The round loop is a Python ``while``: reading ``changed`` costs one host
-sync per round, so a forest pass of r rounds syncs r times.
+Both round loops are Python ``while`` loops: reading ``changed`` costs one
+host sync per round, so a forest pass of r rounds syncs r times.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import math
 import torch
 
 from repro_torch.graph.datastructs import INF32, INT, EdgeList, take
-from repro_torch.kernels.boruvka_round.ops import boruvka_round
+from repro_torch.kernels.boruvka_round.ops import boruvka_round, frontier_round
+from repro_torch.kernels.segment_min.ops import segment_min
 
 
 def _ceil_log2(n: int) -> int:
@@ -105,3 +106,70 @@ def connected_components(edges: EdgeList):
     """Component labels only (same hooking machinery)."""
     _, labels, _ = spanning_forest_ex(edges)
     return labels
+
+
+# --------------------------------------------------------- scan-first search
+def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round):
+    """Level-synchronous frontier hooking: a scan-first-search (BFS-layer)
+    spanning forest, rooted at each component's minimum vertex id.
+
+    Per round every frontier vertex scans its incident edges at once and
+    each newly reached vertex hooks to its MINIMUM-id frontier neighbour
+    (ties on parallel edges broken by minimum edge slot): the ``round_fn``
+    op, by default ``frontier_round`` (the plain ``frontier_round_ref``
+    gives a run that launches no kernel). That parent choice is realizable
+    by a sequential scan-first search that scans each BFS layer in
+    increasing vertex id, so the result is a genuine SFS forest — the
+    property that makes the F1 ∪ F2 pair a 2-vertex-connectivity
+    certificate.
+
+    One round per BFS layer, at most ``n + 1``, one host sync each.
+    Returns (forest bool[E], parent int32[n], level int32[n], root
+    int32[n], rounds).
+    """
+    E = src.shape[0]
+    vs = torch.arange(n, dtype=INT, device=src.device)
+    valid = mask & (src != dst)
+
+    # roots: each component's minimum vertex id
+    minid = segment_min(vs, comp_labels, n)
+    root = take(minid, comp_labels)
+    is_root = root == vs
+
+    visited, frontier = is_root, is_root
+    level = torch.where(is_root, 0, INF32).to(INT)
+    parent = vs
+    forest = torch.zeros(E + 1, dtype=torch.bool, device=src.device)
+    changed, rounds = True, 0
+    while changed and rounds < n + 1:
+        best_p, best_e = round_fn(src, dst, valid, frontier, visited, n)
+        newly = best_p < INF32
+        parent = torch.where(newly, best_p, parent)
+        level = torch.where(newly, rounds + 1, level)
+        # slot E is the dump slot, sliced off below
+        forest[torch.where(newly, best_e, E)] = True
+        visited, frontier = visited | newly, newly
+        changed = bool(newly.any())  # the round's one host sync
+        rounds += 1
+    return forest[:E], parent, level, root, rounds
+
+
+def scan_first_forest(edges: EdgeList):
+    """Returns (forest_mask bool[E], parent int32[n], level int32[n]).
+
+    A BFS-layer scan-first search forest of the masked subgraph.
+    ``level[v]`` is v's BFS layer (roots at 0), ``parent[v]`` the hooked
+    predecessor (roots and isolated vertices point at themselves).
+    Component structure matches ``spanning_forest``; only the tree shape
+    differs."""
+    f, p, lvl, _, _ = scan_first_forest_ex(edges)
+    return f, p, lvl
+
+
+def scan_first_forest_ex(edges: EdgeList):
+    """(forest_mask, parent, level, root_labels, rounds_used).
+
+    ``root_labels[v]`` is the component's canonical minimum vertex id — the
+    same partition as ``connected_components``, canonicalized."""
+    _, labels, _ = spanning_forest_ex(edges)
+    return _sfs_impl(edges.src, edges.dst, edges.mask, edges.n_nodes, labels)

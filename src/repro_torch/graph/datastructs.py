@@ -6,8 +6,9 @@ bucket are interchangeable. Masked slots hold in-range zeros.
 
 Two JAX habits need spelling out here, because torch does not share them:
 
-* an out-of-range gather index is clamped by JAX and an error in torch —
-  ``take`` is the clamped gather;
+* a gather index in ``[-n, -1]`` wraps to ``n + idx`` in JAX (numpy-style)
+  and any index still out of range is clamped, where torch raises — ``take``
+  is that gather;
 * ``.at[idx].set(..., mode="drop")`` drops out-of-range scatter indices —
   the port scatters into a buffer with one dump slot and slices it off.
 """
@@ -36,8 +37,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` with JAX's gather semantics: indices clamped into range."""
-    return x[idx.clamp(0, x.shape[0] - 1)]
+    """``x[idx]`` with JAX's gather semantics: an index in ``[-n, -1]``
+    wraps to ``n + idx``, then every index is clamped into ``[0, n)``."""
+    n = x.shape[0]
+    return x[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,7 @@ from repro_torch.kernels.segment_min import kernel as _segment_min_kernel
 #: every kernel wrapper that counts its launches, by kernel name
 LAUNCHERS = {
     "boruvka_round": _boruvka_kernel.boruvka_round_cuda,
+    "frontier_round": _boruvka_kernel.frontier_round_cuda,
     "segment_min": _segment_min_kernel.segment_min_cuda,
 }
 

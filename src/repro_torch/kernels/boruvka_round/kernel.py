@@ -1,13 +1,23 @@
-"""Launch wrapper of the Hopper Borůvka-round kernel.
+"""Launch wrappers of the Hopper connectivity-round kernels.
 
-Replaces ``src/repro/kernels/boruvka_round/kernel.py::boruvka_round_pallas``
-(body ``_boruvka_round_kernel``, streaming ``_stream_chunks``). The CUDA
-kernel (``csrc/connectivity_rounds.cu::boruvka_round_kernel``) makes one
+``boruvka_round_cuda`` replaces ``src/repro/kernels/boruvka_round/kernel.py::
+boruvka_round_pallas`` (body ``_boruvka_round_kernel``, streaming
+``_stream_chunks``). The CUDA kernel
+(``csrc/connectivity_rounds.cu::boruvka_round_kernel``) makes one
 grid-stride pass, one thread per edge slot: test ``mask`` and
 ``src != dst``, gather both endpoint labels (the int32[n] label array stays
 in L2), and where they differ ``atomicMin`` the slot index into both
 labels' entries of ``best``. It is bound by bytes: the 9 B edge slot read
 once, plus 4 B per label read and 4 B per output written.
+
+``frontier_round_cuda`` replaces ``frontier_round_pallas`` of the same file
+(body ``_frontier_round_kernel``). ``frontier_round_kernel`` makes the same
+one pass; for each orientation u -> w of a live slot with ``frontier[u]``
+and not ``visited[w]`` it ``atomicMin``-s the packed key ``u * 2^32 + slot``
+into an int64[num_segments] buffer, whose minimum is the lexicographic
+(parent, slot) pair; ``unpack_pairs_kernel`` splits it into ``best_p`` and
+``best_e``. Bound by bytes: the 9 B edge slot once, 1 B each of
+``frontier`` and ``visited`` per vertex, 8 B per output pair.
 """
 from __future__ import annotations
 
@@ -15,6 +25,9 @@ import torch
 
 from repro_torch.graph.datastructs import INF32, INT
 from repro_torch.kernels import cuda_lib
+
+#: the packed (INF32, INF32) pair the frontier round's buffer starts from
+PACKED_INF = (INF32 << 32) | INF32
 
 
 def boruvka_round_cuda(src, dst, mask, labels, num_segments: int):
@@ -30,3 +43,26 @@ def boruvka_round_cuda(src, dst, mask, labels, num_segments: int):
 
 
 boruvka_round_cuda.launches = 0
+
+
+def frontier_round_cuda(src, dst, mask, frontier, visited, num_segments: int):
+    """Launch the kernel on CUDA tensors validated by
+    ``ops.frontier_round``; returns ``(best_p, best_e)``."""
+    dev = src.device
+    e = src.numel()
+    if not (e and num_segments):
+        none = torch.full((num_segments,), INF32, dtype=INT, device=dev)
+        return none, none.clone()
+    packed = torch.full((num_segments,), PACKED_INF, dtype=torch.int64,
+                        device=dev)
+    best_p = torch.empty((num_segments,), dtype=INT, device=dev)
+    best_e = torch.empty((num_segments,), dtype=INT, device=dev)
+    cuda_lib.launch("repro_frontier_round", dev, src.data_ptr(),
+                    dst.data_ptr(), mask.data_ptr(), frontier.data_ptr(),
+                    visited.data_ptr(), packed.data_ptr(), best_p.data_ptr(),
+                    best_e.data_ptr(), e, frontier.numel(), num_segments)
+    frontier_round_cuda.launches += 1
+    return best_p, best_e
+
+
+frontier_round_cuda.launches = 0

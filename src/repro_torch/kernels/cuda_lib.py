@@ -32,6 +32,11 @@ _SIGNATURES = {
     # src, dst, mask, labels, best, e, n_labels, num_segments, stream
     "repro_boruvka_round": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, _P],
+    # src, dst, mask, frontier, visited, packed, best_p, best_e, e,
+    # n_nodes, num_segments, stream
+    "repro_frontier_round": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             _P],
     # keys, ids, out, e, num_segments, stream
     "repro_segment_min": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
 }

@@ -76,7 +76,7 @@ def test_analysis_fn_buffers_match_jax(idx, final):
     jel = jds.EdgeList.from_arrays(src, dst, el.n_nodes, capacity=el.capacity)
     want = jax.jit(j_make_analysis_fn(el.n_nodes, "bridges", final))(
         jel.src, jel.dst, jel.mask)
-    got = make_analysis_fn(el.n_nodes, final)(el.src, el.dst, el.mask)
+    got = make_analysis_fn(el.n_nodes, final=final)(el.src, el.dst, el.mask)
     for a, b in zip(want, got):
         assert np.asarray(a).dtype == b.numpy().dtype
         assert np.array_equal(np.asarray(a), b.numpy())
@@ -118,4 +118,4 @@ def test_entry_point_needs_a_card_or_a_named_device(monkeypatch):
 
 def test_unknown_final_stage_raises():
     with pytest.raises(ValueError, match="unknown final stage"):
-        make_analysis_fn(16, "tpu")
+        make_analysis_fn(16, final="tpu")

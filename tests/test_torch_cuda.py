@@ -13,14 +13,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import find_bridges
+from repro_torch import analyze, find_bridges
 from repro_torch.core.api import pad_graph
 from repro_torch.core.bridges_host import bridges_dfs
 from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
 from repro_torch.kernels import cuda_lib, launch_counts, reset_launch_counts
-from repro_torch.kernels.boruvka_round import boruvka_round
-from repro_torch.kernels.boruvka_round.ref import boruvka_round_ref
+from repro_torch.kernels.boruvka_round import boruvka_round, frontier_round
+from repro_torch.kernels.boruvka_round.ref import (
+    boruvka_round_ref,
+    frontier_round_ref,
+)
 from repro_torch.kernels.segment_min import segment_min
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 
@@ -89,7 +92,7 @@ def test_pipeline_on_card_equals_cpu(cuda, final):
     s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
     cpu_el = pad_graph(s, d, 3000, device="cpu")
     gpu_el = pad_graph(s, d, 3000, device=cuda)
-    fn = make_analysis_fn(cpu_el.n_nodes, final)
+    fn = make_analysis_fn(cpu_el.n_nodes, final=final)
     for a, b in zip(fn(cpu_el.src, cpu_el.dst, cpu_el.mask),
                     fn(gpu_el.src, gpu_el.dst, gpu_el.mask)):
         assert torch.equal(a, b.cpu())
@@ -97,3 +100,112 @@ def test_pipeline_on_card_equals_cpu(cuda, final):
         got = find_bridges(sc["src"], sc["dst"], sc["n"], final=final)
         assert got == sc["bridges"] == bridges_dfs(sc["src"], sc["dst"], sc["n"])
     assert find_bridges(s, d, 3000, final=final) == planted
+
+
+def _out_of_range(t, n, seed):
+    """A fifth of the entries moved to ``[-3n, 3n)``: negative ids wrap in
+    gathers, ids past the ends clamp, and either is dropped as a segment."""
+    rng = np.random.default_rng(seed)
+    a = t.numpy().copy()
+    hit = rng.random(a.shape[0]) < 0.2
+    a[hit] = rng.integers(-3 * n, 3 * n, int(hit.sum()))
+    return torch.as_tensor(a)
+
+
+def test_boruvka_round_kernel_wraps_negative_ids(cuda):
+    src, dst, mask, labels = _edge_buffer(1500, 513, seed=3)
+    src, dst = _out_of_range(src, 513, 4), _out_of_range(dst, 513, 5)
+    want = boruvka_round_ref(src, dst, mask, labels, 513)
+    got = boruvka_round(*[t.to(cuda) for t in (src, dst, mask, labels)], 513)
+    assert torch.equal(got.cpu(), want)
+
+
+def _frontier_equal(cuda, src, dst, mask, frontier, visited, n):
+    want = frontier_round_ref(src, dst, mask, frontier, visited, n)
+    got = frontier_round(*[t.to(cuda) for t in (src, dst, mask, frontier,
+                                                visited)], n)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32
+        assert torch.equal(a.cpu(), b)
+    return want
+
+
+@pytest.mark.parametrize("e,n", [(7, 5), (1500, 513), (1 << 16, 4096),
+                                 (1 << 20, 1 << 17)])
+def test_frontier_round_kernel_equals_plain(cuda, e, n):
+    src, dst, mask, _ = _edge_buffer(e, n, seed=e * 3 + n)
+    rng = np.random.default_rng(e + n)
+    for p in (0.001, 0.05, 0.4):  # a thin, a middle and a wide frontier
+        frontier = torch.as_tensor(rng.random(n) < p)
+        visited = torch.as_tensor(rng.random(n) < 0.5) | frontier
+        _frontier_equal(cuda, src, dst, mask, frontier, visited, n)
+
+
+def test_frontier_round_kernel_edge_cases(cuda):
+    n = 513
+    src, dst, mask, _ = _edge_buffer(4096, n, seed=11)
+    rng = np.random.default_rng(12)
+    frontier = torch.as_tensor(rng.random(n) < 0.3)
+    visited = torch.as_tensor(rng.random(n) < 0.5) | frontier
+    oor = (_out_of_range(src, n, 13), _out_of_range(dst, n, 14))
+    _frontier_equal(cuda, *oor, mask, frontier, visited, n)
+    none = torch.zeros(n, dtype=torch.bool)
+    p, e = _frontier_equal(cuda, src, dst, mask, none, visited, n)
+    assert (p == INF32).all() and (e == INF32).all()
+    p, e = _frontier_equal(cuda, src, dst, torch.zeros_like(mask), frontier,
+                           visited, n)
+    assert (p == INF32).all() and (e == INF32).all()
+    # parallel copies of {0, 1} (slot 1 masked), a self-loop at frontier
+    # vertex 3, vertex 5 isolated: the tie on the parent goes to slot 2
+    t = torch.tensor
+    p, e = _frontier_equal(
+        cuda, t([2, 0, 0, 1, 3, 3], dtype=torch.int32),
+        t([1, 1, 1, 0, 3, 4], dtype=torch.int32),
+        t([True, False, True, True, True, True]),
+        t([True, False, True, True, False, False, False]),
+        t([True, False, True, True, False, False, False]), 7)
+    assert p.tolist() == [INF32, 0, INF32, INF32, 3, INF32, INF32]
+    assert e.tolist() == [INF32, 2, INF32, INF32, 5, INF32, INF32]
+
+
+#: every (kind, certificate) the analysis registry allows
+COMBOS = [("bridges", "2ec"), ("2ecc", "2ec"), ("bridge_tree", "2ec"),
+          ("cuts", "sfs"), ("cuts", "hybrid"), ("bcc", "sfs"),
+          ("bcc", "hybrid")]
+
+
+def _same(kind, a, b):
+    return np.array_equal(a, b) if kind == "2ecc" else a == b
+
+
+@pytest.mark.parametrize("final", ["host", "device"])
+def test_analyze_on_card_equals_cpu(cuda, final):
+    s, d, _ = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    cpu_el = pad_graph(s, d, 3000, device="cpu")
+    gpu_el = pad_graph(s, d, 3000, device=cuda)
+    worlds = [(sc["src"], sc["dst"], sc["n"]) for sc in gen.failure_scenarios()]
+    worlds.append((s, d, 3000))
+    for kind, cert in COMBOS:
+        fn = make_analysis_fn(cpu_el.n_nodes, kind, final, certificate=cert)
+        want = fn(cpu_el.src, cpu_el.dst, cpu_el.mask)
+        got = fn(gpu_el.src, gpu_el.dst, gpu_el.mask)
+        if isinstance(want, torch.Tensor):
+            want, got = (want,), (got,)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b.cpu()), (kind, cert)
+        for src, dst, n in worlds:
+            on_card = analyze(src, dst, n, kind=kind, final=final,
+                              certificate=cert)
+            assert _same(kind, on_card, analyze(
+                src, dst, n, kind=kind, final=final, certificate=cert,
+                device="cpu")), (kind, cert, n)
+
+
+@pytest.mark.parametrize("cert", ["sfs", "hybrid"])
+def test_cuts_host_final_launches_frontier_round(cuda, cert):
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    reset_launch_counts()
+    got = analyze(s, d, 3000, kind="cuts", final="host", certificate=cert)
+    counts = launch_counts()
+    assert got == {v for pair in planted for v in pair}
+    assert counts["frontier_round"] > 0 and counts["boruvka_round"] > 0

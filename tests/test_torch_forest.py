@@ -12,11 +12,20 @@ import jax.numpy as jnp
 from repro.configs.bridges_dense import SMOKE
 from repro.core import certificate as jcert
 from repro.core.forest import connected_components as j_components
+from repro.core.forest import scan_first_forest as j_sfs
+from repro.core.forest import scan_first_forest_ex as j_sfs_ex
 from repro.core.forest import spanning_forest_ex as j_forest_ex
 from repro.graph import datastructs as jds
 from repro.graph import generators as gen
 from repro_torch.core import certificate as tcert
-from repro_torch.core.forest import connected_components, spanning_forest_ex
+from repro_torch.core.forest import (
+    _sfs_impl,
+    connected_components,
+    scan_first_forest,
+    scan_first_forest_ex,
+    spanning_forest_ex,
+)
+from repro_torch.kernels.boruvka_round.ref import frontier_round_ref
 from repro_torch.graph import datastructs as tds
 from repro_torch.interop import edgelist_from_numpy, edgelist_to_numpy
 
@@ -125,6 +134,40 @@ def test_spanning_forest_warm_start_matches(world):
     assert np.array_equal(_np(jf), tf.numpy())
     assert np.array_equal(_np(jl), tl.numpy())
     assert int(jr) == tr
+
+
+@pytest.mark.parametrize("world", WORLDS, ids=IDS)
+def test_scan_first_forest_matches(world):
+    """The BFS-layer forest: forest mask, parent, level, root labels and
+    the round count, against the JAX package's."""
+    _, src, dst, n, cap = world
+    jel, tel = _pair(src, dst, n, capacity=cap)
+    want = j_sfs_ex(jel)
+    got = scan_first_forest_ex(tel)
+    for a, b, dtype in zip(want[:4], got[:4], (torch.bool,) + (torch.int32,) * 3):
+        assert b.dtype == dtype
+        assert np.array_equal(_np(a), b.numpy())
+    assert int(want[4]) == got[4]
+    for a, b in zip(j_sfs(jel), scan_first_forest(tel)):
+        assert np.array_equal(_np(a), b.numpy())
+
+
+def test_scan_first_forest_path_rounds():
+    """A path rooted at vertex 0 needs one round per layer (n - 1 layers,
+    then one round that reaches nothing), as in the JAX package; the plain
+    round function gives the same forest."""
+    n = 40
+    src = np.arange(n - 1, dtype=np.int32)
+    jel, tel = _pair(src, src + 1, n)
+    want = j_sfs_ex(jel)
+    got = scan_first_forest_ex(tel)
+    assert got[4] == int(want[4]) == n
+    assert got[2].tolist() == list(range(n))
+    _, labels, _ = spanning_forest_ex(tel)
+    plain = _sfs_impl(tel.src, tel.dst, tel.mask, n, labels,
+                      round_fn=frontier_round_ref)
+    for a, b in zip(got[:4], plain[:4]):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------- certificates

@@ -13,11 +13,18 @@ import jax.numpy as jnp
 
 from repro.graph import generators as gen
 from repro.graph.datastructs import EdgeList as JEdgeList
-from repro.kernels.boruvka_round.kernel import boruvka_round_pallas
+from repro.kernels.boruvka_round.kernel import (
+    boruvka_round_pallas,
+    frontier_round_pallas,
+)
 from repro.kernels.boruvka_round.ops import (
     boruvka_round_bytes as j_boruvka_round_bytes,
 )
+from repro.kernels.boruvka_round.ops import (
+    frontier_round_bytes as j_frontier_round_bytes,
+)
 from repro.kernels.boruvka_round.ref import boruvka_round_ref as j_boruvka_ref
+from repro.kernels.boruvka_round.ref import frontier_round_ref as j_frontier_ref
 from repro.kernels.segment_min.kernel import segment_min_pallas
 from repro.kernels.segment_min.ref import segment_min_ref as j_segment_min_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -25,9 +32,14 @@ from repro_torch.kernels.boruvka_round import (
     EDGE_SLOT_BYTES,
     boruvka_round,
     boruvka_round_bytes,
+    frontier_round,
+    frontier_round_bytes,
     kernel_path,
 )
-from repro_torch.kernels.boruvka_round.ref import boruvka_round_ref
+from repro_torch.kernels.boruvka_round.ref import (
+    boruvka_round_ref,
+    frontier_round_ref,
+)
 from repro_torch.kernels.segment_min import segment_min
 from repro_torch.kernels.segment_min.kernel import check_key_space
 from repro_torch.kernels.segment_min.ref import segment_min_ref
@@ -182,7 +194,8 @@ def test_ops_validate_inputs_and_dispatch_on_cpu():
         boruvka_round(src, dst, msk.int(), labels, 3)
     assert kernel_path("cpu") == "ref" and kernel_path("cuda") == "cuda"
     # the CPU path runs the plain version and launches nothing
-    assert launch_counts() == {"boruvka_round": 0, "segment_min": 0}
+    assert launch_counts() == {"boruvka_round": 0, "frontier_round": 0,
+                               "segment_min": 0}
 
 
 def test_round_byte_model_matches_jax():
@@ -196,3 +209,147 @@ def test_round_byte_model_matches_jax():
         assert boruvka_round_bytes(e, n, 0) == e + 8 * n
         assert (boruvka_round_bytes(e, n, e // 2)
                 == boruvka_round_bytes(e, n, 0) + 8 * (e // 2))
+
+
+def _out_of_range(src, dst, n, seed):
+    """A fifth of the endpoints moved outside ``[0, n)``: some in
+    ``[-n, -1]`` (JAX's gather wraps them), some beyond (clamped)."""
+    rng = np.random.default_rng(seed)
+    src, dst = src.copy(), dst.copy()
+    for a in (src, dst):
+        hit = rng.random(a.shape[0]) < 0.2
+        a[hit] = rng.integers(-3 * n, 3 * n, int(hit.sum()))
+    return src, dst
+
+
+def test_boruvka_round_wraps_negative_ids_as_jax():
+    """A negative endpoint gathers ``labels[n + id]``, as JAX's gather
+    does, and ids beyond the ends are clamped; the contract is the JAX
+    ``boruvka_round_ref``. (The Pallas kernel pads the labels to a multiple
+    of 512 and agrees with its own oracle on such ids only where n is one,
+    so it is compared there.)"""
+    src = np.array([-1, 0], np.int32)
+    dst = np.array([0, 1], np.int32)
+    mask = np.array([True, False])
+    labels = np.array([0, 1], np.int32)
+    want = np.asarray(j_boruvka_ref(*map(jnp.asarray, (src, dst, mask,
+                                                      labels)), 2))
+    assert want.tolist() == [0, 0]  # labels[-1] is labels[1]
+    assert np.array_equal(boruvka_round_ref(*map(_t, (src, dst, mask, labels)),
+                                            2).numpy(), want)
+    for n in (30, 512):
+        s, d, m = _edge_buffer(1500, n, seed=n)
+        s, d = _out_of_range(s, d, n, seed=n + 1)
+        labels = np.random.default_rng(n).integers(0, n, n).astype(np.int32)
+        args = tuple(map(jnp.asarray, (s, d, m, labels)))
+        want = np.asarray(j_boruvka_ref(*args, n))
+        if n % 512 == 0:
+            assert np.array_equal(
+                np.asarray(boruvka_round_pallas(*args, n, interpret=True)),
+                want)
+        for fn in (boruvka_round_ref, boruvka_round):
+            got = fn(*map(_t, (s, d, m, labels)), n)
+            assert np.array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ frontier round
+def _frontier_case(src, dst, mask, frontier, visited, n, pallas=True):
+    """The port's plain version and op against the JAX oracle and, where
+    ``pallas``, the Pallas kernel in interpret mode."""
+    args = tuple(map(jnp.asarray, (src, dst, mask, frontier, visited)))
+    want = [np.asarray(x) for x in j_frontier_ref(*args, n)]
+    if pallas:
+        got = frontier_round_pallas(*args, n, interpret=True)
+        for a, b in zip(got, want):
+            assert np.array_equal(np.asarray(a), b)
+    for fn in (frontier_round_ref, frontier_round):
+        got = fn(*map(_t, (src, dst, mask, frontier, visited)), n)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32
+            assert np.array_equal(a.numpy(), b)
+    return want
+
+
+@pytest.mark.parametrize(
+    "e,n", [(7, 5), (100, 30), (1024, 512), (1500, 513), (2048, 1024)]
+)
+def test_frontier_round_shapes(e, n):
+    rng = np.random.default_rng(e * 13 + n)
+    src, dst, mask = _edge_buffer(e, n, seed=e * 3 + n)
+    frontier = rng.random(n) < 0.4
+    visited = (rng.random(n) < 0.5) | frontier
+    _frontier_case(src, dst, mask, frontier, visited, n)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_frontier_round_property_shape(seed):
+    """tests/test_kernels.py's property shape (E = 512, n = 128)."""
+    rng = np.random.default_rng(seed ^ 0x5F5F)
+    src, dst, mask = _edge_buffer(512, 128, seed=seed + 7)
+    frontier = rng.random(128) < 0.3
+    visited = (rng.random(128) < 0.5) | frontier
+    _frontier_case(src, dst, mask, frontier, visited, 128)
+
+
+@pytest.mark.parametrize("n", [30, 512])
+def test_frontier_round_out_of_range_ids(n):
+    """Endpoints outside ``[0, n)``: gathers wrap and clamp as JAX's do and
+    arc ids outside the segments are dropped. Against the oracle, and the
+    Pallas kernel where n is a multiple of its 512-vertex padding."""
+    rng = np.random.default_rng(n)
+    src, dst, mask = _edge_buffer(1500, n, seed=n + 3)
+    src, dst = _out_of_range(src, dst, n, seed=n + 4)
+    frontier = rng.random(n) < 0.4
+    visited = (rng.random(n) < 0.5) | frontier
+    _frontier_case(src, dst, mask, frontier, visited, n, pallas=n % 512 == 0)
+
+
+def test_frontier_round_edge_cases():
+    # slot 0: 2-1; slots 1-3: three parallel copies of {0, 1}; slot 4 a
+    # self-loop at frontier vertex 3; slot 5: 3-4; vertex 5 isolated
+    src = np.array([2, 0, 0, 1, 3, 3], np.int32)
+    dst = np.array([1, 1, 1, 0, 3, 4], np.int32)
+    mask = np.array([True, False, True, True, True, True])
+    n = 7
+    frontier = np.zeros(n, bool)
+    frontier[[0, 2, 3]] = True
+    visited = frontier.copy()
+    best_p, best_e = _frontier_case(src, dst, mask, frontier, visited, n)
+    # vertex 1: minimum frontier neighbour 0 (not 2), minimum live slot to
+    # 0 is 2 (slot 1 is masked); vertex 4 by slot 5; nothing else reached
+    assert best_p.tolist() == [INF32, 0, INF32, INF32, 3, INF32, INF32]
+    assert best_e.tolist() == [INF32, 2, INF32, INF32, 5, INF32, INF32]
+    # isolated vertex 0 in the frontier reaches nothing
+    fr0 = np.zeros(n, bool)
+    fr0[0] = True
+    p, e = _frontier_case(src[4:], dst[4:], mask[4:], fr0, fr0, n)
+    assert (p == INF32).all() and (e == INF32).all()
+    # empty frontier, all-masked buffer: nothing is reached
+    for fr, m in ((np.zeros(n, bool), mask), (frontier, np.zeros(6, bool))):
+        p, e = _frontier_case(src, dst, m, fr, visited, n)
+        assert (p == INF32).all() and (e == INF32).all()
+
+
+def test_frontier_round_validates_inputs_and_key_space():
+    src = torch.tensor([0, 1], dtype=torch.int32)
+    msk = torch.tensor([True, True])
+    fr = torch.tensor([True, False, False])
+    frontier_round(src, src + 1, msk, fr, fr, 3)
+    with pytest.raises(TypeError, match="frontier must be torch.bool"):
+        frontier_round(src, src + 1, msk, fr.int(), fr, 3)
+    with pytest.raises(ValueError, match="differ in length"):
+        frontier_round(src, src + 1, msk, fr, fr[:2], 3)
+    with pytest.raises(ValueError, match="1-D and non-empty"):
+        frontier_round(src, src + 1, msk, fr[:0], fr[:0], 3)
+    with pytest.raises(ValueError, match="segment-id space"):
+        frontier_round(src, src + 1, msk, fr, fr, (1 << 31) - 10)
+
+
+def test_frontier_round_byte_model():
+    """With every slot live a round moves the JAX package's fused byte
+    model (9 B per slot) plus frontier and visited read (2n B) and the two
+    results written (8n B); a masked slot costs only its mask byte."""
+    for e, n in ((1, 1), (1000, 64), (1 << 24, 1 << 17)):
+        assert frontier_round_bytes(e, n, e) == j_frontier_round_bytes(
+            e, fused=True) + 10 * n
+        assert frontier_round_bytes(e, n, 0) == e + 10 * n

@@ -11,16 +11,25 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 
+#: modules that must be among those imported (the registries and the copied
+#: host oracles hold no torch code of their own, so a stray import of the
+#: JAX package would hide there first)
+_NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
+          "repro_torch.connectivity.registry", "repro_torch.core.api")
+
 _PROBE = """
 import importlib, pkgutil, sys
 import repro_torch
 for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(info.name)
+for name in {named!r}:
+    importlib.import_module(name)
 sys.path.insert(0, {root!r})
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("NAMED", all(name in sys.modules for name in {named!r}))
 print("BAD", bad)
 """
 
@@ -28,9 +37,10 @@ print("BAD", bad)
 def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(root=str(ROOT))],
+        [sys.executable, "-c", _PROBE.format(root=str(ROOT), named=_NAMED)],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+    assert "NAMED True" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 20  # every module of the package was imported
+    assert loaded >= 25  # every module of the package was imported
