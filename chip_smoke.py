@@ -31,6 +31,26 @@ Phases, one JSON line each:
              planted truth, every kind and final; the pipeline of every
              (kind, final, certificate) the registry allows on the card
              against the same pipeline on the CPU, buffer for buffer.
+6. model kernels — ``embedding_bag`` on SASRec's full-width item table
+             (2^20 x 50 float32) at the retrieval step's shape (one bag of
+             50) and at the train batch's (65,536 bags of 50), every mode;
+             ``flash_attention`` at Qwen3-0.6B's attention widths in bf16,
+             causal, for a cut prefill and a cut decode, and one small
+             float32 case. Each against its plain version (rtol 1e-5 with
+             atol 1e-6 in float32 for the bags; attention by a gate that
+             scales with the output, ``ATTN_GATES``, shown to reject two
+             planted faults; TF32 off), with kernel, plain and library
+             times beside the bound. Then one flash_attention op call with
+             the launch counts set to 0 just before and read just after.
+7. recsys  — SASRec serving at full width (``configs/sasrec.py::CONFIG``,
+             weights from ``init_sasrec`` with a seeded generator):
+             ``make_recsys_steps``' serve (B = 512), bulk (B = 32,768,
+             k = 100, 64 chunks) and retrieval (one history of 50 against
+             10^6 candidates) steps, each cold then warm with the launch
+             counts set to 0 just before and read just after; the hidden
+             states against the CPU, bulk's top-k against the full scores'
+             top-k, retrieval against the CPU; each step under
+             torch.profiler.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -83,15 +103,45 @@ from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
 )
+from repro_torch.configs import RECSYS_SHAPES
+from repro_torch.configs.sasrec import CONFIG as SASREC
+from repro_torch.data.pipeline import recsys_batches
+from repro_torch.kernels.embedding_bag import (
+    embedding_bag,
+    embedding_bag_bytes,
+    embedding_bag_bytes_read,
+)
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_attention import (
+    attention_bytes,
+    attention_flops,
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import kernel_path, segment_min
 from repro_torch.kernels.segment_min.ref import segment_min_ref
+from repro_torch.models.recsys import init_sasrec, sasrec_hidden
+from repro_torch.training.steps import make_recsys_steps
 
 #: the paper's Fig. 2 operating point (configs/bridges_dense.py::CONFIG)
 N_NODES, N_EDGES, N_BRIDGES, SEED = 100_000, 10_000_000, 6, 0
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), per second
+BF16_FLOPS_PER_S = 989e12
+#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12
 L2_FLUSH_BYTES = 256 << 20
 SOURCE = "src/repro_torch/csrc/connectivity_rounds.cu"
+#: SASRec serving shapes: serve_p99's batch; serve_bulk's batch cut from
+#: 262,144 to 32,768 (smoke time and peak memory; each chunk's scores are
+#: 2.1 GB either way); retrieval_cand's one user and 10^6 candidates
+SERVE_BATCH = RECSYS_SHAPES["serve_p99"]["batch"]
+BULK_BATCH = 32_768
+N_CANDIDATES = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+#: attention widths of the JAX package's configs/qwen3_0_6b.py (16 query
+#: heads, 8 kv heads, head size 128); lengths cut as each case says
+ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM = 16, 8, 128
 #: the (kind, final, certificate) runs of the analyze phase: every kind with
 #: both finals under its declared certificate, and the vertex kinds' host
 #: final under the other vertex certificate too (their device final runs
@@ -103,7 +153,9 @@ ANALYZE_RUNS += [("cuts", "host", "hybrid"), ("bcc", "host", "hybrid")]
 #: the run whose launches the kernels line reports, per kernel
 LAUNCHES_FROM = {"boruvka_round": "find_bridges(final='device')",
                  "segment_min": "find_bridges(final='device')",
-                 "frontier_round": "analyze(kind='cuts', final='host')"}
+                 "frontier_round": "analyze(kind='cuts', final='host')",
+                 "embedding_bag": "retrieval",
+                 "flash_attention": "flash_attention(prefill)"}
 
 
 def emit(obj) -> None:
@@ -590,6 +642,322 @@ def phase_check() -> None:
           "buffers_equal_to_cpu": buffers})
 
 
+def right_aligned(seq: np.ndarray) -> np.ndarray:
+    """Each history of ``recsys_batches`` moved to end at the last position
+    (padding first), as a served user's history is: the user state is the
+    last position's, and a padded last position gives a zero state whose
+    scores all tie."""
+    order = np.argsort(seq != 0, axis=1, kind="stable")
+    return np.take_along_axis(seq, order, axis=1)
+
+
+def bag_library(table, idx, mask, mode: str):
+    """``torch.nn.functional.embedding_bag`` on the same bags, masked
+    entries dropped through ``offsets``; the conversion is done here, so
+    the returned call times the library alone."""
+    counts = mask.sum(1)
+    offsets = torch.zeros_like(counts)
+    offsets[1:] = counts.cumsum(0)[:-1]
+    flat = idx[mask].long()
+    offsets = offsets.long()
+    return lambda: torch.nn.functional.embedding_bag(flat, table, offsets,
+                                                     mode=mode)
+
+
+def check_embedding_bag(table, flush) -> dict:
+    """``embedding_bag`` on SASRec's item table against its plain version
+    and the library call, every mode, at the retrieval step's shape (one
+    bag of 50) and at the train batch's (65,536 bags of 50), on histories
+    of ``recsys_batches`` with the padding masked. Tolerance: rtol 1e-5,
+    atol 1e-6 in float32 (the sums run in another order). The bound counts
+    the sectors of the distinct rows each mode reads
+    (``embedding_bag_bytes_read``); ``lookup_bytes`` counts a row once per
+    lookup, which is more than the call must move."""
+    n_rows, dim = table.shape
+    rec = {"name": "embedding_bag", "route": "cuda",
+           "path": kernel_path(table.device),
+           "source": "src/repro_torch/csrc/embedding_bag.cu",
+           "replaces": "src/repro/kernels/embedding_bag/kernel.py:60",
+           "bound_by": "bytes", "tolerance": {"rtol": 1e-5, "atol": 1e-6},
+           "library_note": "torch.nn.functional.embedding_bag on the same "
+                           "bags, masked entries dropped through offsets "
+                           "(that conversion untimed)"}
+    errs = []
+    for tag, batch in (("retrieval", 1),
+                       ("train_batch",
+                        RECSYS_SHAPES["train_batch"]["batch"])):
+        seq = right_aligned(recsys_batches(n_rows, batch, SASREC.seq_len,
+                                           seed=SEED)(0)["seq"])
+        idx = torch.as_tensor(seq, device=table.device)
+        mask = idx != 0
+        shape = {"B": batch, "L": SASREC.seq_len, "V": n_rows, "D": dim,
+                 "valid_entries": int(mask.sum()),
+                 "lookup_bytes": embedding_bag_bytes(batch, SASREC.seq_len,
+                                                     dim)}
+        for mode in ("sum", "mean", "max"):
+            nbytes = embedding_bag_bytes_read(table, idx, mask, mode)
+            got = embedding_bag(table, idx, mask, mode)
+            want = embedding_bag_ref(table, idx, mask, mode)
+            library = bag_library(table, idx, mask, mode)
+            for name, other in (("plain", want), ("library", library())):
+                if not torch.allclose(got, other, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(
+                        f"embedding_bag[{tag}, {mode}] differs from the "
+                        f"{name} version: max abs err "
+                        f"{float((got - other).abs().max())}")
+            err = float((got - want).abs().max())
+            errs.append(err)
+            shape[mode] = {
+                "max_abs_err": err, "bound_bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "ms": time_ms(lambda: embedding_bag(table, idx, mask, mode),
+                              flush),
+                "plain_ms": time_ms(
+                    lambda: embedding_bag_ref(table, idx, mask, mode), flush,
+                    iters=5),
+                "library_ms": time_ms(library, flush)}
+        rec[tag] = shape
+    path_shape = rec["retrieval"]
+    rec.update(shape={"B": 1, "L": SASREC.seq_len, "V": n_rows, "D": dim,
+                      "mode": "mean"},
+               max_abs_err=max(errs), ms=path_shape["mean"]["ms"],
+               plain_ms=path_shape["mean"]["plain_ms"],
+               library_ms=path_shape["mean"]["library_ms"],
+               bound_ms=path_shape["mean"]["bound_ms"],
+               bound_bytes=path_shape["mean"]["bound_bytes"])
+    return rec
+
+
+#: flash_attention's cases: (batch, Sq, Skv, dtype, what was cut)
+ATTN_CHECKS = {
+    "prefill": (1, 8192, 8192, torch.bfloat16,
+                "prefill_32k's length cut to 8,192 so that the plain "
+                "version's 4.3 GB score tensor fits"),
+    "decode": (32, 1, 32768, torch.bfloat16,
+               "decode_32k's cache length; batch cut from 128 to 32"),
+    "small_f32": (1, 512, 512, torch.float32, "a small float32 case"),
+}
+#: flash_attention's gate by dtype: every element within ``ulps`` units in
+#: the last place of the plain version's value plus ``floor`` times the
+#: case's largest |value|, and the relative L2 error under ``rel_l2``. An
+#: output row averages thousands of values (|value| ≈ 0.01 at these
+#: lengths), so the gate scales with the output: a fixed atol would pass a
+#: halved output.
+ATTN_GATES = {torch.bfloat16: {"ulps": 2, "floor": 1e-3, "rel_l2": 1e-2},
+              torch.float32: {"ulps": 2, "floor": 1e-5, "rel_l2": 1e-4}}
+#: keys the planted "dropped tile" fault skips: the first kv tile
+ATTN_DROPPED_KEYS = 64
+
+
+def attention_gate(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``got`` against ``want`` under ``ATTN_GATES[want.dtype]``: the max
+    abs error, the worst element's error over its limit, the relative L2
+    error, and whether all three hold (``got`` finite too)."""
+    gate = ATTN_GATES[want.dtype]
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    tiny = torch.finfo(want.dtype).tiny
+    ulp = torch.finfo(want.dtype).eps * torch.exp2(
+        torch.floor(torch.log2(mag.clamp_min(tiny))))
+    limit = gate["ulps"] * ulp + gate["floor"] * float(mag.max())
+    worst = float((diff / limit).max())
+    rel_l2 = float(diff.norm() / mag.norm())
+    return {"max_abs_err": float(diff.max()), "worst_over_limit": worst,
+            "rel_l2": rel_l2,
+            "pass": bool(torch.isfinite(got).all()) and worst <= 1
+            and rel_l2 < gate["rel_l2"]}
+
+
+def planted_faults(got, want, q, k, v) -> dict:
+    """Two wrong outputs the gate must reject: the kernel's output halved,
+    and the plain version with the first ``ATTN_DROPPED_KEYS`` keys skipped
+    by every query row that sees past them (rows that see only those keys
+    keep their value)."""
+    sq, skv, cut = q.shape[1], k.shape[1], ATTN_DROPPED_KEYS
+    r0 = max(0, cut - (skv - sq))  # causal: the first row that sees past
+    dropped = torch.cat([want[:, :r0], attention_ref(
+        q[:, r0:], k[:, cut:], v[:, cut:], causal=True)], dim=1)
+    return {"halved": got * 0.5, "first_kv_tile_dropped": dropped}
+
+
+def check_flash_attention(flush, dev) -> tuple:
+    """``flash_attention`` at Qwen3-0.6B's attention widths, causal, against
+    its plain version (float32 products, TF32 off) and, as the library
+    yardstick, ``scaled_dot_product_attention`` with the kv heads repeated
+    outside the timed window; then one op call on the prefill inputs with
+    the launch counts set to 0 just before and read just after. Returns the
+    record and that call's run."""
+    gen_ = torch.Generator(device=dev).manual_seed(SEED)
+    hq, hkv, d = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM
+    rec = {"name": "flash_attention", "route": "cuda",
+           "path": kernel_path(dev),
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+           "heads": {"Hq": hq, "Hkv": hkv, "D": d},
+           "library_note": "torch.nn.functional.scaled_dot_product_attention"
+                           " on [B, H, S, D] copies with the kv heads "
+                           "repeated (untimed); is_causal where Sq == Skv "
+                           "(a single query row sees every key)"}
+    errs = []
+    inputs = {}
+    for tag, (b, sq, skv, dtype, cut) in ATTN_CHECKS.items():
+        q, k, v = (torch.randn(shape, generator=gen_, device=dev).to(dtype)
+                   for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                 (b, skv, hkv, d)))
+        got = flash_attention(q, k, v, causal=True)
+        want = attention_ref(q, k, v, causal=True)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=sq == skv)
+
+        vs_plain = attention_gate(got, want)
+        if not vs_plain["pass"]:
+            raise AssertionError(f"flash_attention[{tag}] differs from the "
+                                 f"plain version: {vs_plain}")
+        # the library rounds its probabilities to the input dtype: held by
+        # the relative L2 error only
+        vs_library = attention_gate(got, library().transpose(1, 2))
+        if not vs_library["rel_l2"] < ATTN_GATES[dtype]["rel_l2"]:
+            raise AssertionError(f"flash_attention[{tag}] differs from the "
+                                 f"library call: {vs_library}")
+        faults = {name: attention_gate(bad, want) for name, bad
+                  in planted_faults(got, want, q, k, v).items()}
+        if any(fault["pass"] for fault in faults.values()):
+            raise AssertionError(f"flash_attention[{tag}]: the gate passes "
+                                 f"a planted fault: {faults}")
+        err = vs_plain["max_abs_err"]
+        errs.append(err)
+        flops = attention_flops(b, sq, skv, hq, d, causal=True)
+        nbytes = attention_bytes(b, sq, skv, hq, hkv, d, q.element_size())
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rec[tag] = {
+            "B": b, "Sq": sq, "Skv": skv, "dtype": str(dtype).split(".")[-1],
+            "cut": cut, "gate": ATTN_GATES[dtype], "max_abs_err": err,
+            "vs_plain": vs_plain,
+            "vs_library_rel_l2": vs_library["rel_l2"],
+            "planted_faults": faults,
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "ms": time_ms(lambda: flash_attention(q, k, v), flush),
+            "plain_ms": time_ms(lambda: attention_ref(q, k, v), flush,
+                                iters=5, warmup=1),
+            "library_ms": time_ms(library, flush)}
+        inputs[tag] = (q, k, v)
+        del got, want, qt, kt, vt
+    sync()
+    reset_launch_counts()
+    flash_attention(*inputs["prefill"], causal=True)
+    sync()
+    run = {"launches": launch_counts()}
+    main_case = rec["prefill"]
+    rec.update(max_abs_err=max(errs), ms=main_case["ms"],
+               plain_ms=main_case["plain_ms"],
+               library_ms=main_case["library_ms"],
+               bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"])
+    return rec, run
+
+
+def params_to(params: dict, device) -> dict:
+    """A copy of SASRec's parameters on ``device``."""
+    out = {key: val.to(device) for key, val in params.items()
+           if key != "blocks"}
+    out["blocks"] = [{key: val.to(device) for key, val in blk.items()}
+                     for blk in params["blocks"]]
+    return out
+
+
+def run_step(step: str, fn, args) -> tuple:
+    """One recsys step, launch counts zeroed just before it and read just
+    after; its output and record. The peak counts every live tensor: the
+    weights (210 MB at full width) and this run's output among them."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    seconds = time.perf_counter() - t0
+    return out, {"phase": "recsys", "step": step, "seconds": seconds,
+                 "launches": launch_counts(),
+                 "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_recsys(params) -> dict:
+    """SASRec's three serving steps at full width, cold then warm, and
+    their checks; then each under torch.profiler."""
+    steps = make_recsys_steps(SASREC)
+    bulk_seq = right_aligned(recsys_batches(
+        SASREC.n_items, BULK_BATCH, SASREC.seq_len, seed=SEED)(0)["seq"])
+    serve_seq = bulk_seq[:SERVE_BATCH]
+    history = serve_seq[:1]
+    hist_mask = history != 0
+    candidates = np.random.default_rng(SEED).integers(
+        1, SASREC.n_items, N_CANDIDATES).astype(np.int32)
+    args = {"serve": (params, serve_seq), "bulk": (params, bulk_seq),
+            "retrieval": (params, history, hist_mask, candidates)}
+    shapes = {"serve": {"B": SERVE_BATCH, "S": SASREC.seq_len},
+              "bulk": {"B": BULK_BATCH, "S": SASREC.seq_len, "k": 100,
+                       "n_chunks": 64,
+                       "cut": "serve_bulk's batch 262,144 cut to 32,768"},
+              "retrieval": {"B": 1, "L": SASREC.seq_len,
+                            "C": N_CANDIDATES}}
+    runs, outs = {}, {}
+    for step in ("serve", "bulk", "retrieval"):
+        recs = []
+        for run in ("cold", "warm"):
+            outs.pop(step, None)  # the peak holds one output: this run's
+            outs[step], rec = run_step(step, steps[step], args[step])
+            rec.update(run=run, shape=shapes[step])
+            emit(rec)
+            recs.append(rec)
+        if recs[0]["launches"] != recs[1]["launches"]:
+            raise AssertionError(f"launch counts differ between runs of "
+                                 f"{step}")
+        runs[step] = recs[1]
+        if step == "serve":  # keep the full scores' top-k, not the scores
+            outs[step] = torch.topk(outs[step], 100, dim=-1).values
+    if runs["retrieval"]["launches"]["embedding_bag"] != 1:
+        raise AssertionError("retrieval did not launch embedding_bag once")
+
+    cpu = params_to(params, "cpu")
+    hidden = sasrec_hidden(params, serve_seq, SASREC).cpu()
+    hidden_cpu = sasrec_hidden(cpu, serve_seq, SASREC)
+    top_full = outs["serve"]
+    top_bulk = outs["bulk"][0][:SERVE_BATCH]
+    ret_cpu = steps["retrieval"](cpu, history, hist_mask, candidates)
+    errs = {"hidden_vs_cpu": float((hidden - hidden_cpu).abs().max()),
+            "bulk_topk_vs_serve_topk": float((top_bulk - top_full).abs().max()),
+            "retrieval_vs_cpu": float((outs["retrieval"].cpu() - ret_cpu)
+                                      .abs().max())}
+    for name, got, want, tol in (
+            ("hidden_vs_cpu", hidden, hidden_cpu, 1e-4),
+            ("bulk_topk_vs_serve_topk", top_bulk, top_full, 1e-5),
+            ("retrieval_vs_cpu", outs["retrieval"].cpu(), ret_cpu, 1e-5)):
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got, want, rtol=tol, atol=tol)):
+            raise AssertionError(f"recsys check {name} failed: max abs err "
+                                 f"{errs[name]} (tolerance {tol})")
+    emit({"phase": "recsys_check", "max_abs_err": errs,
+          "tolerance": {"hidden_vs_cpu": 1e-4,
+                        "bulk_topk_vs_serve_topk": 1e-5,
+                        "retrieval_vs_cpu": 1e-5},
+          "zero_user_states": int((hidden[:, -1].abs().sum(-1) == 0).sum())})
+    del outs
+    phase_profile("serve", lambda: steps["serve"](*args["serve"]),
+                  lambda got: got.shape == (SERVE_BATCH, SASREC.n_items))
+    phase_profile("bulk", lambda: steps["bulk"](*args["bulk"]),
+                  lambda got: got[0].shape == (BULK_BATCH, 100))
+    phase_profile("retrieval", lambda: steps["retrieval"](*args["retrieval"]),
+                  lambda got: got.shape == (1, N_CANDIDATES))
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -630,6 +998,21 @@ def main() -> int:
                                       final=final),
                       lambda got: got == truth[kind])
     phase_check()
+
+    # the plain versions' float32 products run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = init_sasrec(SASREC, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    checks["embedding_bag"] = check_embedding_bag(params["item_emb"], flush)
+    emit({"phase": "kernel_check", **checks["embedding_bag"]})
+    checks["flash_attention"], runs["flash_attention(prefill)"] = (
+        check_flash_attention(flush, torch.device("cuda")))
+    emit({"phase": "kernel_check", **checks["flash_attention"]})
+    del flush
+    torch.cuda.empty_cache()
+    runs.update(phase_recsys(params))
 
     kernels = []
     for name, rec in checks.items():

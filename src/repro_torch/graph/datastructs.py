@@ -8,7 +8,7 @@ Two JAX habits need spelling out here, because torch does not share them:
 
 * a gather index in ``[-n, -1]`` wraps to ``n + idx`` in JAX (numpy-style)
   and any index still out of range is clamped, where torch raises — ``take``
-  is that gather;
+  is that gather (``take_fill`` is ``jnp.take``'s, which fills NaN instead);
 * ``.at[idx].set(..., mode="drop")`` drops out-of-range scatter indices —
   the port scatters into a buffer with one dump slot and slices it off.
 """
@@ -41,6 +41,18 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     wraps to ``n + idx``, then every index is clamped into ``[0, n)``."""
     n = x.shape[0]
     return x[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
+def take_fill(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(x, idx, axis=0)`` in its default "fill" mode: an index in
+    ``[-n, -1]`` wraps to ``n + idx``; a row whose index is still outside
+    ``[0, n)`` is NaN (``x`` floating)."""
+    n = x.shape[0]
+    wrapped = torch.where(idx < 0, idx + n, idx)
+    inside = (wrapped >= 0) & (wrapped < n)
+    rows = x[wrapped.clamp(0, n - 1)]
+    shape = inside.shape + (1,) * (x.dim() - 1)
+    return torch.where(inside.reshape(shape), rows, float("nan"))
 
 
 @dataclasses.dataclass(frozen=True)

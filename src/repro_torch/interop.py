@@ -1,14 +1,21 @@
-"""Edge buffers across the package boundary, as numpy arrays.
+"""Edge buffers and model parameters across the package boundary, as
+numpy arrays.
 
 The JAX package and the port share no tensors; a test hands a JAX buffer
-across as numpy arrays so that both packages compute on identical input.
+or parameter tree across as numpy arrays so that both packages compute on
+identical input.
 """
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from repro_torch.graph.datastructs import EdgeList, resolve_device
+
+if TYPE_CHECKING:
+    from repro_torch.models.recsys import SASRecConfig
 
 
 def edgelist_from_numpy(src, dst, mask, n_nodes: int, device=None) -> EdgeList:
@@ -27,3 +34,37 @@ def edgelist_from_numpy(src, dst, mask, n_nodes: int, device=None) -> EdgeList:
 def edgelist_to_numpy(el: EdgeList):
     """Host copies ``(src, dst, mask)`` of the whole buffer, padding included."""
     return el.src.cpu().numpy(), el.dst.cpu().numpy(), el.mask.cpu().numpy()
+
+
+def sasrec_params_from_numpy(tree: dict, cfg: SASRecConfig,
+                             device=None) -> dict:
+    """The port's SASRec parameters, key for key, from the JAX package's
+    parameter tree given as numpy arrays (``item_emb``, ``pos_emb``,
+    ``blocks``: a list of dicts of ``wq``, ``wk``, ``wv``, ``w1``, ``w2``,
+    ``ln1``, ``ln2``), in ``cfg``'s dtype on ``device`` (the card unless
+    named). Raises on a missing key or a shape that ``cfg`` does not
+    give."""
+    # imported here, so that the edge-buffer helpers do not load the model
+    from repro_torch.models.recsys import BLOCK_MATRICES
+
+    dev = resolve_device(device)
+    d = cfg.d
+    shapes = {"item_emb": (cfg.n_items, d), "pos_emb": (cfg.seq_len, d),
+              **{name: (d, d) for name in BLOCK_MATRICES},
+              "ln1": (d,), "ln2": (d,)}
+
+    def tensor(name, value):
+        a = np.asarray(value)
+        if a.shape != shapes[name]:
+            raise ValueError(f"{name}: shape {a.shape}, config gives "
+                             f"{shapes[name]}")
+        return torch.tensor(a, dtype=cfg.dtype, device=dev)
+
+    if len(tree["blocks"]) != cfg.n_blocks:
+        raise ValueError(f"{len(tree['blocks'])} blocks, config gives "
+                         f"{cfg.n_blocks}")
+    return {"item_emb": tensor("item_emb", tree["item_emb"]),
+            "pos_emb": tensor("pos_emb", tree["pos_emb"]),
+            "blocks": [{name: tensor(name, blk[name])
+                        for name in (*BLOCK_MATRICES, "ln1", "ln2")}
+                       for blk in tree["blocks"]]}

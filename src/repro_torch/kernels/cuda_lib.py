@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The kernels live in ``repro_torch/csrc/*.cu`` with a plain C interface.
-At first use ``nvcc`` compiles them for Hopper (``sm_90a``) into one shared
-library under ``<repo>/build/kernels/`` and ``ctypes`` loads it: no PyTorch
+At first use ``nvcc`` compiles them for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
+library under ``<repo>/build/kernels/``, which ``ctypes`` loads: no PyTorch
 headers, so the build takes seconds. The library's file name carries a hash
 of the sources, the flags and nvcc's version, so a change to any of them
 builds anew. A failed build raises; there is no
@@ -22,10 +23,13 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "connectivity_rounds.cu",)
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "connectivity_rounds.cu", "embedding_bag.cu", "flash_attention.cu"))
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+#: flags of each source's compile (``-c``); the objects are then linked with
+#: ``-shared``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -39,6 +43,13 @@ _SIGNATURES = {
                              _P],
     # keys, ids, out, e, num_segments, stream
     "repro_segment_min": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    # table, idx, mask, out, n_bags, bag_len, n_rows, dim, mode, dtype,
+    # stream
+    "repro_embedding_bag": [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_P],
+    # q, k, v, out, batch, sq, skv, hq, hkv, d, scale, causal, dtype, stream
+    "repro_flash_attention": ([_P] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 _P]),
 }
 
 
@@ -66,26 +77,44 @@ def lib_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels.{h.hexdigest()[:16]}.so"
 
 
+def _run_together(cmds: list) -> str:
+    """Start every command at once, wait for all; their output, or raise
+    naming the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(force: bool = False) -> dict:
-    """Compile the sources into ``lib_path()`` unless that file is there.
-    Returns ``{"built", "path", "seconds", "log"}``; ``log`` holds nvcc's
-    output, with ptxas's register and spill figures."""
+    """Compile the sources into ``lib_path()`` unless that file is there:
+    one nvcc per source, all at once, then one link. Returns ``{"built",
+    "path", "seconds", "log"}``; ``log`` holds nvcc's output, with ptxas's
+    register and spill figures."""
     path = lib_path()
     if not force and path.is_file():
         return {"built": False, "path": path, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{path.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)  # atomic: no process loads a half-written file
-    return {"built": True, "path": path, "seconds": seconds, "log": log}
+    try:
+        log = _run_together([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)] for src, obj in zip(SOURCES, objs)])
+        log += _run_together([[nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)]])
+        os.replace(tmp, path)  # atomic: no process loads a half-written file
+    finally:
+        for leftover in (tmp, *objs):
+            leftover.unlink(missing_ok=True)
+    return {"built": True, "path": path,
+            "seconds": time.perf_counter() - t0, "log": log}
 
 
 @functools.cache

@@ -1,7 +1,10 @@
-"""The Hopper kernels on the card: each against its plain version, bit for
-bit (tolerance 0: integer outputs), and the port's pipeline on the card
-against the same pipeline on the CPU. These tests need an NVIDIA card; the
-``cuda`` fixture skips them where there is none. On the card:
+"""The Hopper kernels on the card: each against its plain version (the
+connectivity kernels bit for bit, since their outputs are integers;
+embedding_bag within 1e-5 in float32; flash_attention within 2e-5 in
+float32 and 3e-2 in bf16, the plain version's products in full float32,
+TF32 off), and the port's pipelines on the card against the same pipelines
+on the CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
+them where there is none. On the card:
 
     python -m pytest -m gpu tests/test_torch_cuda.py
 
@@ -24,8 +27,16 @@ from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
 )
+from repro_torch.configs import sasrec
+from repro_torch.data.pipeline import recsys_batches
+from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import segment_min
 from repro_torch.kernels.segment_min.ref import segment_min_ref
+from repro_torch.models import recsys as rec
+from repro_torch.training.steps import make_recsys_steps
 
 pytestmark = pytest.mark.gpu
 
@@ -209,3 +220,118 @@ def test_cuts_host_final_launches_frontier_round(cuda, cert):
     counts = launch_counts()
     assert got == {v for pair in planted for v in pair}
     assert counts["frontier_round"] > 0 and counts["boruvka_round"] > 0
+
+
+# ------------------------------------------------------------- embedding bag
+def _bag_inputs(b, l, v, d, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32))
+    idx = rng.integers(0, v, (b, l)).astype(np.int32)
+    mask = rng.random((b, l)) > 0.3
+    mask[0] = False  # an empty bag
+    return table.to(dtype), torch.as_tensor(idx), torch.as_tensor(mask)
+
+
+def _bag_equal(cuda, table, idx, mask, mode, tol):
+    want = embedding_bag_ref(table.to(cuda), idx.to(cuda),
+                             None if mask is None else mask.to(cuda), mode)
+    got = embedding_bag(table.to(cuda), idx.to(cuda),
+                        None if mask is None else mask.to(cuda), mode)
+    assert got.dtype == table.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+    return got.float().cpu().numpy()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+@pytest.mark.parametrize("b,l,v,d", [(1, 50, 4096, 50), (13, 7, 1000, 32),
+                                     (1000, 33, 5000, 130), (64, 1, 64, 16)])
+def test_embedding_bag_kernel_equals_plain(cuda, mode, b, l, v, d):
+    table, idx, mask = _bag_inputs(b, l, v, d, seed=b + l + d)
+    _bag_equal(cuda, table, idx, mask, mode, 1e-5)
+    _bag_equal(cuda, table, idx, None, mode, 1e-5)
+    # bf16 table: float32 sums in the kernel, one rounding at the store
+    _bag_equal(cuda, table.to(torch.bfloat16), idx, mask, mode, 3e-2)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_kernel_ids_and_nan(cuda, mode):
+    """Negative ids wrap, ids outside [-V, V) read NaN rows (a NaN bag in
+    sum and mean even where masked), max propagates a NaN row."""
+    table, idx, mask = _bag_inputs(40, 9, 100, 24, seed=3)
+    rng = np.random.default_rng(4)
+    idx = torch.as_tensor(rng.integers(-300, 300, (40, 9)).astype(np.int32))
+    got = _bag_equal(cuda, table, idx, mask, mode, 1e-5)
+    assert np.isnan(got).any() and (got[0] == 0).all() == (mode == "max")
+    table[7, 3] = float("nan")
+    idx = torch.as_tensor(rng.integers(-100, 100, (40, 9)).astype(np.int32))
+    idx[1, 0] = 7
+    mask[1, 0] = True
+    got = _bag_equal(cuda, table, idx, mask, mode, 1e-5)
+    assert np.isnan(got[1, 3]) and np.isfinite(got[1, :3]).all()
+
+
+# ------------------------------------------------------------ flash attention
+ATTN_CASES = [
+    # b, sq, skv, hq, hkv, d
+    (2, 64, 64, 4, 2, 32),     # GQA group 2
+    (1, 128, 128, 8, 1, 64),   # MQA
+    (3, 1, 1000, 4, 2, 128),   # decode: one query vs cache
+    (2, 17, 63, 2, 2, 16),     # ragged, non-block-aligned
+    (1, 300, 300, 2, 2, 128),  # d_head = 128, ragged tiles
+    (1, 70, 20, 2, 1, 64),     # Sq > Skv: causal rows 0-49 see no key
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_equals_plain(cuda, case, causal, dtype, tol):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, sq, skv, hq, hkv, d = case
+    rng = np.random.default_rng(sum(case))
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+               .to(cuda, dtype) for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                              (b, skv, hkv, d)))
+    want = attention_ref(q, k, v, causal=causal)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol, rtol=tol)
+    if causal and sq > skv:
+        assert torch.isnan(got[:, : sq - skv]).all()
+
+
+def test_flash_attention_kernel_rejects_head_size(cuda):
+    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head sizes"):
+        flash_attention(q, q, q)
+
+
+# ------------------------------------------------------------------ SASRec
+def test_recsys_steps_on_card_equal_cpu(cuda):
+    cfg = sasrec.SMOKE
+    params = rec.init_sasrec(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    on_card = {key: val.to(cuda) for key, val in params.items()
+               if key != "blocks"}
+    on_card["blocks"] = [{key: val.to(cuda) for key, val in blk.items()}
+                         for blk in params["blocks"]]
+    seq = recsys_batches(cfg.n_items, 8, cfg.seq_len, seed=1)(0)["seq"]
+    steps = make_recsys_steps(cfg)
+    for got, want in ((steps["serve"](on_card, seq),
+                       steps["serve"](params, seq)),
+                      (steps["bulk"](on_card, seq)[0],
+                       steps["bulk"](params, seq)[0])):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    cand = np.arange(1, 200, dtype=np.int32)
+    reset_launch_counts()
+    got = steps["retrieval"](on_card, seq[:1], seq[:1] != 0, cand)
+    assert launch_counts()["embedding_bag"] == 1
+    want = steps["retrieval"](params, seq[:1], seq[:1] != 0, cand)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)

@@ -2,7 +2,9 @@
 and dispatch against the JAX package's Pallas kernels (interpret mode) and
 jnp oracles, on the shapes of tests/test_kernels.py.
 
-Every output is an integer, so the stated tolerance is exact equality.
+The connectivity kernels' outputs are integers, so their tolerance is exact
+equality; embedding_bag's are floats, held within 1e-5 (the sums run in
+another order).
 """
 import numpy as np
 import pytest
@@ -25,6 +27,8 @@ from repro.kernels.boruvka_round.ops import (
 )
 from repro.kernels.boruvka_round.ref import boruvka_round_ref as j_boruvka_ref
 from repro.kernels.boruvka_round.ref import frontier_round_ref as j_frontier_ref
+from repro.kernels.embedding_bag.kernel import embedding_bag_pallas
+from repro.kernels.embedding_bag.ref import embedding_bag_ref as j_bag_ref
 from repro.kernels.segment_min.kernel import segment_min_pallas
 from repro.kernels.segment_min.ref import segment_min_ref as j_segment_min_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -40,6 +44,12 @@ from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
 )
+from repro_torch.kernels.embedding_bag import (
+    embedding_bag,
+    embedding_bag_bytes,
+    embedding_bag_bytes_read,
+)
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.segment_min import segment_min
 from repro_torch.kernels.segment_min.kernel import check_key_space
 from repro_torch.kernels.segment_min.ref import segment_min_ref
@@ -195,7 +205,8 @@ def test_ops_validate_inputs_and_dispatch_on_cpu():
     assert kernel_path("cpu") == "ref" and kernel_path("cuda") == "cuda"
     # the CPU path runs the plain version and launches nothing
     assert launch_counts() == {"boruvka_round": 0, "frontier_round": 0,
-                               "segment_min": 0}
+                               "segment_min": 0, "embedding_bag": 0,
+                               "flash_attention": 0}
 
 
 def test_round_byte_model_matches_jax():
@@ -353,3 +364,148 @@ def test_frontier_round_byte_model():
         assert frontier_round_bytes(e, n, e) == j_frontier_round_bytes(
             e, fused=True) + 10 * n
         assert frontier_round_bytes(e, n, 0) == e + 10 * n
+
+
+# ------------------------------------------------------------- embedding bag
+MODES = ("sum", "mean", "max")
+
+
+def _bag_case(table, idx, mask, mode, pallas=True):
+    """The port's plain version and op against the JAX oracle and, where
+    ``pallas``, the Pallas kernel in interpret mode; tolerance 1e-5."""
+    jargs = (jnp.asarray(table), jnp.asarray(idx),
+             None if mask is None else jnp.asarray(mask))
+    want = np.asarray(j_bag_ref(*jargs, mode=mode))
+    if pallas:
+        got = np.asarray(embedding_bag_pallas(*jargs, mode=mode,
+                                              interpret=True))
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    targs = (_t(table), _t(idx), None if mask is None else _t(mask))
+    for fn in (embedding_bag_ref, embedding_bag):
+        got = fn(*targs, mode=mode)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    return want
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("b,l,v,d", [(13, 7, 1000, 32), (8, 1, 64, 16),
+                                     (3, 50, 4096, 64)])
+def test_embedding_bag_matches_jax(mode, b, l, v, d):
+    """tests/test_kernels.py's cases (same seeds)."""
+    rng = np.random.default_rng(b * l)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(0, v, (b, l)).astype(np.int32)
+    mask = rng.random((b, l)) > 0.3
+    _bag_case(table, idx, mask, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_embedding_bag_empty_bag_and_no_mask(mode):
+    table = np.random.default_rng(1).normal(size=(10, 4)).astype(np.float32)
+    idx = np.array([[3, 1, 0], [2, 2, 9]], np.int32)
+    mask = np.array([[True, True, False], [False, False, False]])
+    out = _bag_case(table, idx, mask, mode)
+    assert (out[1] == 0).all()  # an empty bag pools to zero
+    _bag_case(table, idx, None, mode)  # no mask: every entry counts
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_embedding_bag_wraps_negative_ids(mode):
+    """An id in [-V, -1] reads row V + id, as ``jnp.take`` does; the Pallas
+    kernel agrees."""
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(64, 16)).astype(np.float32)
+    idx = rng.integers(-64, 64, (9, 6)).astype(np.int32)
+    mask = rng.random((9, 6)) > 0.3
+    out = _bag_case(table, idx, mask, mode)
+    wrapped = np.where(idx < 0, idx + 64, idx).astype(np.int32)
+    assert (idx < 0).any() and np.isfinite(out).all()
+    assert np.array_equal(out, _bag_case(table, wrapped, mask, mode,
+                                         pallas=False))
+
+
+def test_embedding_bag_out_of_range_ids_follow_the_oracle():
+    """An id outside [-V, V) reads a NaN row (``jnp.take``'s fill mode). The
+    oracle multiplies by the mask after the gather, so in sum and mean such
+    an id gives a NaN bag even where it is masked; max skips it where
+    masked. The Pallas kernel clamps instead (ROADMAP §C, noted in the
+    reference): the port follows the oracle and is compared with it only."""
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    idx = np.array([[-1, 5, 1], [7, 0, 2], [-5, 1, 1]], np.int32)
+    mask = np.array([[True, False, True], [True, True, True],
+                     [False, True, False]])
+    want = {mode: _bag_case(table, idx, mask, mode, pallas=False)
+            for mode in MODES}
+    assert np.isnan(want["sum"][0]).all() and np.isnan(want["mean"][0]).all()
+    assert want["max"][0].tolist() == [9.0, 10.0, 11.0]
+    assert np.isnan(want["max"][1]).all()  # valid out-of-range id
+    assert want["max"][2].tolist() == [3.0, 4.0, 5.0]
+    rng = np.random.default_rng(9)
+    idx = rng.integers(-200, 200, (20, 8)).astype(np.int32)
+    table = rng.normal(size=(100, 8)).astype(np.float32)
+    for mode in MODES:
+        _bag_case(table, idx, rng.random((20, 8)) > 0.4, mode, pallas=False)
+
+
+def test_embedding_bag_max_propagates_nan_rows():
+    table = np.ones((6, 4), np.float32)
+    table[2, 1] = np.nan
+    idx = np.array([[0, 2, 1], [2, 0, 1]], np.int32)
+    mask = np.array([[True, True, True], [False, True, True]])
+    out = _bag_case(table, idx, mask, "max", pallas=False)
+    assert np.isnan(out[0, 1]) and np.isfinite(out[1]).all()
+
+
+def test_embedding_bag_validates_and_counts_no_cpu_launch():
+    reset_launch_counts()
+    table = torch.ones((5, 3))
+    idx = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag(table, idx, mode="min")
+    with pytest.raises(TypeError):
+        embedding_bag(table, idx.long())
+    with pytest.raises(TypeError):
+        embedding_bag(table, idx, torch.ones((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(torch.ones((3, 5)).T, idx)
+    with pytest.raises(ValueError, match="2-D"):
+        embedding_bag(torch.ones(5), idx)
+    assert embedding_bag(table, idx, mode="mean").tolist() == [[1.0] * 3] * 2
+    assert launch_counts()["embedding_bag"] == 0
+
+
+def test_embedding_bag_byte_model():
+    """Rows gathered (B·L·D·4), the indices and mask bytes (B·L·5) and the
+    output (B·D·4): the retrieval shape and the train-batch shape."""
+    assert embedding_bag_bytes(1, 50, 50) == 50 * 50 * 4 + 250 + 200
+    big = embedding_bag_bytes(65_536, 50, 50)
+    assert big == 65_536 * (50 * 50 * 4 + 50 * 5 + 50 * 4)
+    assert 6.8e8 < big < 6.9e8  # ≈ 685 MB
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_embedding_bag_bytes_read_counts_distinct_sectors(mode):
+    """The bound's byte count: every 32-byte sector of the distinct rows
+    the mode reads, once (brute force over byte addresses), plus indices,
+    mask and output. Negative ids wrap, out-of-range ids read no row, and
+    ``max`` reads no masked row."""
+    rng = np.random.default_rng(11)
+    table = torch.tensor(rng.normal(size=(40, 50)).astype(np.float32))
+    idx = rng.integers(-60, 60, (6, 9)).astype(np.int32)
+    mask = rng.random((6, 9)) > 0.3
+    read = {int(i) % 40 for i, m in zip(idx.ravel(), mask.ravel())
+            if -40 <= i < 40 and (m or mode != "max")}
+    base = table.data_ptr()
+
+    def sectors(rows):
+        return len({(base + r * 200 + byte) // 32
+                    for r in rows for byte in range(200)})
+
+    got = embedding_bag_bytes_read(table, torch.from_numpy(idx),
+                                   torch.from_numpy(mask), mode)
+    assert got == 32 * sectors(read) + idx.size * 5 + 6 * 50 * 4
+    same = torch.full((4, 8), 3, dtype=torch.int32)  # one row, 32 lookups
+    got = embedding_bag_bytes_read(table, same, mode=mode)
+    assert got == 32 * sectors({3}) + 32 * 4 + 4 * 50 * 4
+    assert got < embedding_bag_bytes(4, 8, 50)

@@ -15,7 +15,13 @@ ROOT = Path(__file__).resolve().parents[1]
 #: host oracles hold no torch code of their own, so a stray import of the
 #: JAX package would hide there first)
 _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
-          "repro_torch.connectivity.registry", "repro_torch.core.api")
+          "repro_torch.connectivity.registry", "repro_torch.core.api",
+          "repro_torch.configs", "repro_torch.configs.sasrec",
+          "repro_torch.data.pipeline", "repro_torch.interop",
+          "repro_torch.kernels.embedding_bag.ops",
+          "repro_torch.kernels.flash_attention.ops",
+          "repro_torch.models.layers", "repro_torch.models.recsys",
+          "repro_torch.training.steps")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -43,4 +49,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert "BAD []" in proc.stdout, proc.stdout
     assert "NAMED True" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 25  # every module of the package was imported
+    assert loaded >= 45  # every module of the package was imported
