@@ -34,14 +34,18 @@ Phases, one JSON line each:
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode;
-             ``flash_attention`` at Qwen3-0.6B's attention widths in bf16,
-             causal, for a cut prefill and a cut decode, and one small
-             float32 case. Each against its plain version (rtol 1e-5 with
-             atol 1e-6 in float32 for the bags; attention by a gate that
-             scales with the output, ``ATTN_GATES``, shown to reject two
-             planted faults; TF32 off), with kernel, plain and library
-             times beside the bound. Then one flash_attention op call with
-             the launch counts set to 0 just before and read just after.
+             ``flash_attention`` at Qwen3-0.6B's attention widths in bf16
+             (the tensor-core kernel ``flash_attention_mma``), causal, for
+             a cut prefill and a cut decode, and one small float32 case
+             (the float32-core kernel ``flash_attention``). Each against
+             its plain version (rtol 1e-5 with atol 1e-6 in float32 for
+             the bags; attention by a gate that scales with the output,
+             ``ops.ATTN_GATES``, shown to reject two planted faults; TF32
+             off), with kernel, plain and library times beside the bound;
+             the bf16 cases also time the float32-core kernel through its
+             entry as a yardstick. Then one flash_attention op call per
+             kernel (bf16 prefill, float32 case) with the launch counts set
+             to 0 just before and read just after.
 7. recsys  — SASRec serving at full width (``configs/sasrec.py::CONFIG``,
              weights from ``init_sasrec`` with a seeded generator):
              ``make_recsys_steps``' serve (B = 512), bulk (B = 32,768,
@@ -113,10 +117,13 @@ from repro_torch.kernels.embedding_bag import (
 )
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention import (
+    ATTN_GATES,
     attention_bytes,
     attention_flops,
+    attention_gate,
     flash_attention,
 )
+from repro_torch.kernels.flash_attention.kernel import KERNEL_OF
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import kernel_path, segment_min
 from repro_torch.kernels.segment_min.ref import segment_min_ref
@@ -155,7 +162,8 @@ LAUNCHES_FROM = {"boruvka_round": "find_bridges(final='device')",
                  "segment_min": "find_bridges(final='device')",
                  "frontier_round": "analyze(kind='cuts', final='host')",
                  "embedding_bag": "retrieval",
-                 "flash_attention": "flash_attention(prefill)"}
+                 "flash_attention_mma": "flash_attention(prefill)",
+                 "flash_attention": "flash_attention(small_f32)"}
 
 
 def emit(obj) -> None:
@@ -728,7 +736,8 @@ def check_embedding_bag(table, flush) -> dict:
     return rec
 
 
-#: flash_attention's cases: (batch, Sq, Skv, dtype, what was cut)
+#: flash_attention's cases: (batch, Sq, Skv, dtype, what was cut); bf16
+#: goes to flash_attention_mma, float32 to flash_attention
 ATTN_CHECKS = {
     "prefill": (1, 8192, 8192, torch.bfloat16,
                 "prefill_32k's length cut to 8,192 so that the plain "
@@ -737,35 +746,11 @@ ATTN_CHECKS = {
                "decode_32k's cache length; batch cut from 128 to 32"),
     "small_f32": (1, 512, 512, torch.float32, "a small float32 case"),
 }
-#: flash_attention's gate by dtype: every element within ``ulps`` units in
-#: the last place of the plain version's value plus ``floor`` times the
-#: case's largest |value|, and the relative L2 error under ``rel_l2``. An
-#: output row averages thousands of values (|value| ≈ 0.01 at these
-#: lengths), so the gate scales with the output: a fixed atol would pass a
-#: halved output.
-ATTN_GATES = {torch.bfloat16: {"ulps": 2, "floor": 1e-3, "rel_l2": 1e-2},
-              torch.float32: {"ulps": 2, "floor": 1e-5, "rel_l2": 1e-4}}
+#: the case whose op call each kernel's main-path run makes, by kernel
+ATTN_RUN_CASE = {"flash_attention_mma": "prefill",
+                 "flash_attention": "small_f32"}
 #: keys the planted "dropped tile" fault skips: the first kv tile
 ATTN_DROPPED_KEYS = 64
-
-
-def attention_gate(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """``got`` against ``want`` under ``ATTN_GATES[want.dtype]``: the max
-    abs error, the worst element's error over its limit, the relative L2
-    error, and whether all three hold (``got`` finite too)."""
-    gate = ATTN_GATES[want.dtype]
-    diff = (got.float() - want.float()).abs()
-    mag = want.float().abs()
-    tiny = torch.finfo(want.dtype).tiny
-    ulp = torch.finfo(want.dtype).eps * torch.exp2(
-        torch.floor(torch.log2(mag.clamp_min(tiny))))
-    limit = gate["ulps"] * ulp + gate["floor"] * float(mag.max())
-    worst = float((diff / limit).max())
-    rel_l2 = float(diff.norm() / mag.norm())
-    return {"max_abs_err": float(diff.max()), "worst_over_limit": worst,
-            "rel_l2": rel_l2,
-            "pass": bool(torch.isfinite(got).all()) and worst <= 1
-            and rel_l2 < gate["rel_l2"]}
 
 
 def planted_faults(got, want, q, k, v) -> dict:
@@ -780,31 +765,56 @@ def planted_faults(got, want, q, k, v) -> dict:
     return {"halved": got * 0.5, "first_kv_tile_dropped": dropped}
 
 
+def previous_kernel(q, k, v) -> torch.Tensor:
+    """The float32-core kernel (csrc/flash_attention.cu) on bf16 inputs,
+    causal, through its entry and outside the op: a yardstick for the
+    tensor-core kernel, never a path (its launches are not counted)."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    out = torch.empty_like(q)
+    cuda_lib.launch("repro_flash_attention", q.device, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+                    hq, hkv, d, d ** -0.5, 1, 1)  # causal, dtype code bf16
+    return out
+
+
 def check_flash_attention(flush, dev) -> tuple:
     """``flash_attention`` at Qwen3-0.6B's attention widths, causal, against
     its plain version (float32 products, TF32 off) and, as the library
     yardstick, ``scaled_dot_product_attention`` with the kv heads repeated
-    outside the timed window; then one op call on the prefill inputs with
-    the launch counts set to 0 just before and read just after. Returns the
-    record and that call's run."""
+    outside the timed window; on the bf16 cases the float32-core kernel is
+    timed too (``previous_kernel_ms``). Each case records the kernel its op
+    call launched. Then, per kernel, one op call on its case's inputs with
+    the launch counts set to 0 just before and read just after. Returns
+    the records by kernel and those calls' runs."""
     gen_ = torch.Generator(device=dev).manual_seed(SEED)
     hq, hkv, d = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM
-    rec = {"name": "flash_attention", "route": "cuda",
-           "path": kernel_path(dev),
-           "source": "src/repro_torch/csrc/flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-           "heads": {"Hq": hq, "Hkv": hkv, "D": d},
-           "library_note": "torch.nn.functional.scaled_dot_product_attention"
-                           " on [B, H, S, D] copies with the kv heads "
-                           "repeated (untimed); is_causal where Sq == Skv "
-                           "(a single query row sees every key)"}
-    errs = []
+    recs = {name: {"name": name, "route": "cuda", "path": kernel_path(dev),
+                   "source": f"src/repro_torch/csrc/{name}.cu",
+                   "replaces": "src/repro/kernels/flash_attention/"
+                               "kernel.py:78",
+                   "heads": {"Hq": hq, "Hkv": hkv, "D": d},
+                   "library_note": "torch.nn.functional."
+                                   "scaled_dot_product_attention on "
+                                   "[B, H, S, D] copies with the kv heads "
+                                   "repeated (untimed); is_causal where "
+                                   "Sq == Skv (a single query row sees "
+                                   "every key)"}
+            for name in ATTN_RUN_CASE}
+    errs = {name: [] for name in ATTN_RUN_CASE}
     inputs = {}
     for tag, (b, sq, skv, dtype, cut) in ATTN_CHECKS.items():
         q, k, v = (torch.randn(shape, generator=gen_, device=dev).to(dtype)
                    for shape in ((b, sq, hq, d), (b, skv, hkv, d),
                                  (b, skv, hkv, d)))
+        reset_launch_counts()
         got = flash_attention(q, k, v, causal=True)
+        sync()
+        ran = [name for name, n in launch_counts().items() if n]
+        name = KERNEL_OF[dtype]
+        if ran != [name]:
+            raise AssertionError(f"flash_attention[{tag}] launched {ran}, "
+                                 f"not {name}")
         want = attention_ref(q, k, v, causal=True)
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
@@ -824,21 +834,21 @@ def check_flash_attention(flush, dev) -> tuple:
         if not vs_library["rel_l2"] < ATTN_GATES[dtype]["rel_l2"]:
             raise AssertionError(f"flash_attention[{tag}] differs from the "
                                  f"library call: {vs_library}")
-        faults = {name: attention_gate(bad, want) for name, bad
+        faults = {fault: attention_gate(bad, want) for fault, bad
                   in planted_faults(got, want, q, k, v).items()}
         if any(fault["pass"] for fault in faults.values()):
             raise AssertionError(f"flash_attention[{tag}]: the gate passes "
                                  f"a planted fault: {faults}")
         err = vs_plain["max_abs_err"]
-        errs.append(err)
+        errs[name].append(err)
         flops = attention_flops(b, sq, skv, hq, d, causal=True)
         nbytes = attention_bytes(b, sq, skv, hq, hkv, d, q.element_size())
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        rec[tag] = {
+        case = {
             "B": b, "Sq": sq, "Skv": skv, "dtype": str(dtype).split(".")[-1],
-            "cut": cut, "gate": ATTN_GATES[dtype], "max_abs_err": err,
-            "vs_plain": vs_plain,
+            "kernel": name, "cut": cut, "gate": ATTN_GATES[dtype],
+            "max_abs_err": err, "vs_plain": vs_plain,
             "vs_library_rel_l2": vs_library["rel_l2"],
             "planted_faults": faults,
             "flops": flops, "bytes": nbytes,
@@ -848,19 +858,29 @@ def check_flash_attention(flush, dev) -> tuple:
             "plain_ms": time_ms(lambda: attention_ref(q, k, v), flush,
                                 iters=5, warmup=1),
             "library_ms": time_ms(library, flush)}
+        if dtype == torch.bfloat16:
+            previous = attention_gate(previous_kernel(q, k, v), want)
+            case.update(
+                previous_kernel_ms=time_ms(lambda: previous_kernel(q, k, v),
+                                           flush),
+                previous_kernel_vs_plain=previous)
+        recs[name][tag] = case
         inputs[tag] = (q, k, v)
         del got, want, qt, kt, vt
-    sync()
-    reset_launch_counts()
-    flash_attention(*inputs["prefill"], causal=True)
-    sync()
-    run = {"launches": launch_counts()}
-    main_case = rec["prefill"]
-    rec.update(max_abs_err=max(errs), ms=main_case["ms"],
-               plain_ms=main_case["plain_ms"],
-               library_ms=main_case["library_ms"],
-               bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"])
-    return rec, run
+    runs = {}
+    for name, tag in ATTN_RUN_CASE.items():
+        sync()
+        reset_launch_counts()
+        flash_attention(*inputs[tag], causal=True)
+        sync()
+        runs[f"flash_attention({tag})"] = {"launches": launch_counts()}
+        main_case = recs[name][tag]
+        recs[name].update(
+            max_abs_err=max(errs[name]), ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"],
+            library_ms=main_case["library_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"])
+    return recs, runs
 
 
 def params_to(params: dict, device) -> dict:
@@ -1007,9 +1027,12 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     checks["embedding_bag"] = check_embedding_bag(params["item_emb"], flush)
     emit({"phase": "kernel_check", **checks["embedding_bag"]})
-    checks["flash_attention"], runs["flash_attention(prefill)"] = (
-        check_flash_attention(flush, torch.device("cuda")))
-    emit({"phase": "kernel_check", **checks["flash_attention"]})
+    attn_checks, attn_runs = check_flash_attention(flush,
+                                                   torch.device("cuda"))
+    for rec in attn_checks.values():
+        emit({"phase": "kernel_check", **rec})
+    checks.update(attn_checks)
+    runs.update(attn_runs)
     del flush
     torch.cuda.empty_cache()
     runs.update(phase_recsys(params))

@@ -1,16 +1,22 @@
-"""Launch wrapper of the Hopper flash-attention kernel.
+"""Launch wrappers of the Hopper flash-attention kernels.
 
-``flash_attention_cuda`` replaces ``src/repro/kernels/flash_attention/
-kernel.py::flash_attention_pallas`` (body ``_flash_kernel``). The CUDA
-kernel (``csrc/flash_attention.cu::flash_attention_kernel``) runs one block
-of 8 warps per (batch * query head, tile of 64 query rows): query, key and
-value tiles staged in shared memory as float32, scores with one lane per
-key, an online-softmax update per 64-key tile, the output accumulated in
-float32 registers with one lane per column and rounded once to q's dtype.
-Key tiles above a causal diagonal are skipped. It is bound by operations
-at the tensor cores' bf16 rate for a long prefill and by the bytes of K and
-V for decoding (``ops.attention_flops``, ``ops.attention_bytes``); being on
-the float32 cores, it is far from the first.
+Both replace ``src/repro/kernels/flash_attention/kernel.py::
+flash_attention_pallas`` (body ``_flash_kernel``); ``flash_attention_cuda``
+picks one by dtype and nothing else:
+
+* bf16 -> ``flash_attention_mma_cuda`` (``csrc/flash_attention_mma.cu``):
+  FlashAttention-2's structure on the tensor cores' ``mma.sync.m16n8k16``,
+  one block of 4 warps per (batch * query head, 64 query rows), K and V
+  tiles double buffered in shared memory with ``cp.async``, the online
+  softmax in registers, and the probabilities split into two bf16 halves
+  for the second product, so that they keep float32's accuracy.
+* float32 -> ``flash_attention_f32_cuda`` (``csrc/flash_attention.cu``), on
+  the float32 cores: the tensor cores' float32 path is TF32, which the
+  float32 contract rules out.
+
+A long prefill is bound by operations at the tensor cores' bf16 rate and
+decoding by the bytes of K and V (``ops.attention_flops``,
+``ops.attention_bytes``).
 """
 from __future__ import annotations
 
@@ -18,26 +24,62 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 
-#: head sizes the kernel is compiled for
+#: head sizes both kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-#: dtypes of q, k, v and out the kernel takes, by the code its entry reads
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: query rows of one block (the grid's second dimension counts these)
+#: query rows of one block in both kernels; the grid's second dimension
+#: counts these tiles and takes at most ``MAX_Q_TILES``
 Q_TILE = 64
+MAX_Q_TILES = 65535
+#: the kernel that takes each dtype, by its name in ``kernels.LAUNCHERS``
+KERNEL_OF = {torch.bfloat16: "flash_attention_mma",
+             torch.float32: "flash_attention"}
 
 
-def flash_attention_cuda(q, k, v, causal: bool, scale: float):
-    """Launch the kernel on CUDA tensors validated by
-    ``ops.flash_attention``."""
+def _launch(entry: str, q, k, v, causal: bool, scale: float, *extra):
+    """Call ``entry`` on contiguous q, k, v (copied where not 16-byte
+    aligned, as the kernels' vector loads need); returns out and whether
+    the kernel was launched (not when there is nothing to compute)."""
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     out = torch.empty_like(q)
-    if b and sq and hq:
-        cuda_lib.launch("repro_flash_attention", q.device, q.data_ptr(),
-                        k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-                        hq, hkv, d, float(scale), int(causal), DTYPES[q.dtype])
-        flash_attention_cuda.launches += 1
+    if not (b and sq and hq):
+        return out, False
+    cuda_lib.launch(entry, q.device, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
+                    float(scale), int(causal), *extra)
+    return out, True
+
+
+def flash_attention_mma_cuda(q, k, v, causal: bool, scale: float):
+    """bf16 q, k, v: the tensor-core kernel."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_mma takes bf16, got {q.dtype}")
+    out, launched = _launch("repro_flash_attention_mma", q, k, v, causal,
+                            scale)
+    flash_attention_mma_cuda.launches += launched
     return out
 
 
-flash_attention_cuda.launches = 0
+def flash_attention_f32_cuda(q, k, v, causal: bool, scale: float):
+    """float32 q, k, v: the float32-core kernel."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention takes float32, got {q.dtype}")
+    out, launched = _launch("repro_flash_attention", q, k, v, causal, scale,
+                            0)  # the entry's dtype code of float32
+    flash_attention_f32_cuda.launches += launched
+    return out
+
+
+flash_attention_mma_cuda.launches = 0
+flash_attention_f32_cuda.launches = 0
+
+
+def flash_attention_cuda(q, k, v, causal: bool, scale: float):
+    """Launch the kernel of q's dtype on CUDA tensors validated by
+    ``ops.flash_attention``; raise for any other dtype."""
+    if q.dtype == torch.bfloat16:
+        return flash_attention_mma_cuda(q, k, v, causal, scale)
+    if q.dtype == torch.float32:
+        return flash_attention_f32_cuda(q, k, v, causal, scale)
+    raise TypeError(f"the kernels take {list(KERNEL_OF)}, got {q.dtype}")

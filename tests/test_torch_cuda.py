@@ -2,8 +2,9 @@
 connectivity kernels bit for bit, since their outputs are integers;
 embedding_bag within 1e-5 in float32; flash_attention within 2e-5 in
 float32 and 3e-2 in bf16, the plain version's products in full float32,
-TF32 off), and the port's pipelines on the card against the same pipelines
-on the CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
+TF32 off, and its bf16 kernel under the gate of ``ops.ATTN_GATES`` too),
+and the port's pipelines on the card against the same pipelines on the
+CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
 them where there is none. On the card:
 
     python -m pytest -m gpu tests/test_torch_cuda.py
@@ -31,7 +32,10 @@ from repro_torch.configs import sasrec
 from repro_torch.data.pipeline import recsys_batches
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    attention_gate,
+    flash_attention,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import segment_min
 from repro_torch.kernels.segment_min.ref import segment_min_ref
@@ -281,6 +285,45 @@ ATTN_CASES = [
     (1, 300, 300, 2, 2, 128),  # d_head = 128, ragged tiles
     (1, 70, 20, 2, 1, 64),     # Sq > Skv: causal rows 0-49 see no key
 ]
+#: the bf16 kernel's edges: (b, sq, skv, hq, hkv, d)
+MMA_CASES = [
+    (2, 77, 131, 4, 2, 64),      # Sq, Skv not multiples of 16 or 64
+    (1, 45, 45, 2, 1, 128),      # one ragged tile each way
+    (2, 100, 150, 4, 4, 16),     # D 16
+    (1, 129, 200, 4, 2, 32),     # D 32, a one-row last query tile
+    (1, 150, 37, 4, 2, 64),      # Sq > Skv: causal rows 0-112 see no key
+    (4, 1, 777, 8, 4, 128),      # decode, Hq / Hkv = 2
+    (1, 2048, 2048, 4, 2, 128),  # a long causal prefill
+]
+
+
+def _attn_inputs(case, dtype, device, seed):
+    b, sq, skv, hq, hkv, d = case
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+                 .to(device, dtype)
+                 for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                               (b, skv, hkv, d)))
+
+
+def _attn_launched(q, k, v, causal):
+    """One op call; asserts that it went through the kernel of q's dtype
+    and no other."""
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    counts = launch_counts()
+    want_mma = int(q.dtype == torch.bfloat16)
+    assert counts["flash_attention_mma"] == want_mma
+    assert counts["flash_attention"] == 1 - want_mma
+    return got
+
+
+def _attn_gate(got, want, sq, skv, causal):
+    """Rows that see no key are NaN in both; the others pass the gate."""
+    blind = sq - skv if causal and sq > skv else 0
+    assert torch.isnan(got[:, :blind]).all() and torch.isnan(want[:, :blind]).all()
+    verdict = attention_gate(got[:, blind:], want[:, blind:])
+    assert verdict["pass"], verdict
 
 
 @pytest.mark.parametrize("case", ATTN_CASES)
@@ -290,25 +333,58 @@ ATTN_CASES = [
 def test_flash_attention_kernel_equals_plain(cuda, case, causal, dtype, tol):
     assert not torch.backends.cuda.matmul.allow_tf32
     b, sq, skv, hq, hkv, d = case
-    rng = np.random.default_rng(sum(case))
-    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32))
-               .to(cuda, dtype) for shape in ((b, sq, hq, d), (b, skv, hkv, d),
-                                              (b, skv, hkv, d)))
+    q, k, v = _attn_inputs(case, dtype, cuda, seed=sum(case))
     want = attention_ref(q, k, v, causal=causal)
-    reset_launch_counts()
-    got = flash_attention(q, k, v, causal=causal)
-    assert launch_counts()["flash_attention"] == 1
+    got = _attn_launched(q, k, v, causal)
     assert got.dtype == dtype and got.shape == q.shape
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=tol, rtol=tol)
     if causal and sq > skv:
         assert torch.isnan(got[:, : sq - skv]).all()
+    if dtype == torch.bfloat16:
+        _attn_gate(got, want, sq, skv, causal)
+
+
+@pytest.mark.parametrize("case", MMA_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_mma_kernel_edges(cuda, case, causal):
+    """The bf16 kernel at ragged lengths, every head size, NaN rows,
+    decoding with a GQA group of 2 and a 2,048-long causal prefill, under
+    the smoke's gate (ops.ATTN_GATES)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, sq, skv, hq, hkv, d = case
+    q, k, v = _attn_inputs(case, torch.bfloat16, cuda, seed=sum(case) + 1)
+    want = attention_ref(q, k, v, causal=causal)
+    got = _attn_launched(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _attn_gate(got, want, sq, skv, causal)
+
+
+def test_flash_attention_mma_kernel_unaligned_views(cuda):
+    """Contiguous inputs whose data is not 16-byte aligned (views into a
+    buffer at an odd offset) give the same output."""
+    case = (1, 40, 90, 4, 2, 32)
+    q, k, v = _attn_inputs(case, torch.bfloat16, cuda, seed=5)
+    shifted = []
+    for x in (q, k, v):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    want = _attn_launched(q, k, v, True)
+    got = _attn_launched(*shifted, True)
+    assert torch.equal(got, want)
 
 
 def test_flash_attention_kernel_rejects_head_size(cuda):
     q = torch.zeros((1, 4, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head sizes"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="flash_attention_mma takes head"):
+        flash_attention(*(q.bfloat16(),) * 3)
+    with pytest.raises(TypeError):
+        flash_attention(*(q[..., :32].half(),) * 3)
 
 
 # ------------------------------------------------------------------ SASRec
