@@ -34,18 +34,19 @@ Phases, one JSON line each:
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode;
-             ``flash_attention`` at Qwen3-0.6B's attention widths in bf16
-             (the tensor-core kernel ``flash_attention_mma``), causal, for
-             a cut prefill and a cut decode, and one small float32 case
-             (the float32-core kernel ``flash_attention``). Each against
-             its plain version (rtol 1e-5 with atol 1e-6 in float32 for
-             the bags; attention by a gate that scales with the output,
-             ``ops.ATTN_GATES``, shown to reject two planted faults; TF32
-             off), with kernel, plain and library times beside the bound;
-             the bf16 cases also time the float32-core kernel through its
-             entry as a yardstick. Then one flash_attention op call per
-             kernel (bf16 prefill, float32 case) with the launch counts set
-             to 0 just before and read just after.
+             ``flash_attention`` at Qwen3-0.6B's attention widths, causal:
+             in bf16 (the tensor-core kernel ``flash_attention_mma``) a cut
+             prefill and a cut decode, in float32 (the 3xTF32 tensor-core
+             kernel ``flash_attention_tf32x3``) the same prefill and one
+             small case. Each against its plain version (rtol 1e-5 with
+             atol 1e-6 in float32 for the bags; attention by a gate that
+             scales with the output, ``ops.ATTN_GATES``, shown to reject
+             two planted faults; TF32 off), with kernel, plain and library
+             times beside the bound; every case also runs the first,
+             float32-core kernel (``csrc/flash_attention.cu``) through its
+             entry, under the same gate, as a timed yardstick. Then one flash_attention op call per kernel
+             (bf16 prefill, float32 prefill) with the launch counts set to
+             0 just before and read just after.
 7. recsys  — SASRec serving at full width (``configs/sasrec.py::CONFIG``,
              weights from ``init_sasrec`` with a seeded generator):
              ``make_recsys_steps``' serve (B = 512), bulk (B = 32,768,
@@ -123,7 +124,10 @@ from repro_torch.kernels.flash_attention import (
     attention_gate,
     flash_attention,
 )
-from repro_torch.kernels.flash_attention.kernel import KERNEL_OF
+from repro_torch.kernels.flash_attention.kernel import (
+    KERNEL_OF,
+    float32_core_kernel,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import kernel_path, segment_min
 from repro_torch.kernels.segment_min.ref import segment_min_ref
@@ -138,6 +142,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet), per second:
+#: exact float32 work there costs three TF32 products per product (3xTF32)
+TF32_FLOPS_PER_S = 494.7e12
 L2_FLUSH_BYTES = 256 << 20
 SOURCE = "src/repro_torch/csrc/connectivity_rounds.cu"
 #: SASRec serving shapes: serve_p99's batch; serve_bulk's batch cut from
@@ -163,7 +170,7 @@ LAUNCHES_FROM = {"boruvka_round": "find_bridges(final='device')",
                  "frontier_round": "analyze(kind='cuts', final='host')",
                  "embedding_bag": "retrieval",
                  "flash_attention_mma": "flash_attention(prefill)",
-                 "flash_attention": "flash_attention(small_f32)"}
+                 "flash_attention_tf32x3": "flash_attention(prefill_f32)"}
 
 
 def emit(obj) -> None:
@@ -737,18 +744,21 @@ def check_embedding_bag(table, flush) -> dict:
 
 
 #: flash_attention's cases: (batch, Sq, Skv, dtype, what was cut); bf16
-#: goes to flash_attention_mma, float32 to flash_attention
+#: goes to flash_attention_mma, float32 to flash_attention_tf32x3
 ATTN_CHECKS = {
     "prefill": (1, 8192, 8192, torch.bfloat16,
                 "prefill_32k's length cut to 8,192 so that the plain "
                 "version's 4.3 GB score tensor fits"),
     "decode": (32, 1, 32768, torch.bfloat16,
                "decode_32k's cache length; batch cut from 128 to 32"),
+    "prefill_f32": (1, 8192, 8192, torch.float32,
+                    "prefill_32k's length cut to 8,192 so that the plain "
+                    "version's 4.3 GB score tensor fits"),
     "small_f32": (1, 512, 512, torch.float32, "a small float32 case"),
 }
 #: the case whose op call each kernel's main-path run makes, by kernel
 ATTN_RUN_CASE = {"flash_attention_mma": "prefill",
-                 "flash_attention": "small_f32"}
+                 "flash_attention_tf32x3": "prefill_f32"}
 #: keys the planted "dropped tile" fault skips: the first kv tile
 ATTN_DROPPED_KEYS = 64
 
@@ -766,27 +776,40 @@ def planted_faults(got, want, q, k, v) -> dict:
 
 
 def previous_kernel(q, k, v) -> torch.Tensor:
-    """The float32-core kernel (csrc/flash_attention.cu) on bf16 inputs,
-    causal, through its entry and outside the op: a yardstick for the
-    tensor-core kernel, never a path (its launches are not counted)."""
-    b, sq, hq, d = q.shape
-    _, skv, hkv, _ = k.shape
-    out = torch.empty_like(q)
-    cuda_lib.launch("repro_flash_attention", q.device, q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-                    hq, hkv, d, d ** -0.5, 1, 1)  # causal, dtype code bf16
-    return out
+    """The first, float32-core kernel (csrc/flash_attention.cu), causal,
+    through its entry and outside the op: a yardstick for the tensor-core
+    kernels, never a path (its launches are not counted)."""
+    return float32_core_kernel(q, k, v, True, q.shape[-1] ** -0.5)
+
+
+def attention_bound(flops: int, nbytes: int, dtype) -> dict:
+    """The least time of one call: the larger of its bytes over the memory
+    rate and its operations over the fastest exact route for the dtype (bf16
+    on the tensor cores; float32 on the float32 cores or as 3xTF32 on the
+    tensor cores, the lesser)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == torch.bfloat16:
+        routes = {"bf16 tensor cores": flops / BF16_FLOPS_PER_S * 1e3}
+    else:
+        routes = {"float32 cores": flops / F32_FLOPS_PER_S * 1e3,
+                  "3xTF32 tensor cores": 3 * flops / TF32_FLOPS_PER_S * 1e3}
+    route = min(routes, key=routes.get)
+    by_ops = routes[route]
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "bound_ops_route": route, "bound_ms_by_route": routes,
+            "bound_ms_by_bytes": by_bytes}
 
 
 def check_flash_attention(flush, dev) -> tuple:
     """``flash_attention`` at Qwen3-0.6B's attention widths, causal, against
     its plain version (float32 products, TF32 off) and, as the library
     yardstick, ``scaled_dot_product_attention`` with the kv heads repeated
-    outside the timed window; on the bf16 cases the float32-core kernel is
-    timed too (``previous_kernel_ms``). Each case records the kernel its op
-    call launched. Then, per kernel, one op call on its case's inputs with
-    the launch counts set to 0 just before and read just after. Returns
-    the records by kernel and those calls' runs."""
+    outside the timed window; the first, float32-core kernel is held under
+    the gate and timed too (``previous_kernel_ms``). Each case records the
+    kernel its op call launched. Then, per kernel, one op call on its
+    case's inputs with the launch counts set to 0 just before and read just
+    after. Returns the records by kernel and those calls' runs."""
     gen_ = torch.Generator(device=dev).manual_seed(SEED)
     hq, hkv, d = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM
     recs = {name: {"name": name, "route": "cuda", "path": kernel_path(dev),
@@ -843,8 +866,11 @@ def check_flash_attention(flush, dev) -> tuple:
         errs[name].append(err)
         flops = attention_flops(b, sq, skv, hq, d, causal=True)
         nbytes = attention_bytes(b, sq, skv, hq, hkv, d, q.element_size())
-        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-        by_ops, by_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        previous = attention_gate(previous_kernel(q, k, v), want)
+        if not previous["pass"]:
+            raise AssertionError(f"flash_attention[{tag}]: the float32-"
+                                 f"core kernel differs from the plain "
+                                 f"version: {previous}")
         case = {
             "B": b, "Sq": sq, "Skv": skv, "dtype": str(dtype).split(".")[-1],
             "kernel": name, "cut": cut, "gate": ATTN_GATES[dtype],
@@ -852,18 +878,14 @@ def check_flash_attention(flush, dev) -> tuple:
             "vs_library_rel_l2": vs_library["rel_l2"],
             "planted_faults": faults,
             "flops": flops, "bytes": nbytes,
-            "bound_ms": max(by_ops, by_bytes),
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            **attention_bound(flops, nbytes, dtype),
             "ms": time_ms(lambda: flash_attention(q, k, v), flush),
             "plain_ms": time_ms(lambda: attention_ref(q, k, v), flush,
                                 iters=5, warmup=1),
-            "library_ms": time_ms(library, flush)}
-        if dtype == torch.bfloat16:
-            previous = attention_gate(previous_kernel(q, k, v), want)
-            case.update(
-                previous_kernel_ms=time_ms(lambda: previous_kernel(q, k, v),
-                                           flush),
-                previous_kernel_vs_plain=previous)
+            "library_ms": time_ms(library, flush),
+            "previous_kernel_ms": time_ms(lambda: previous_kernel(q, k, v),
+                                          flush),
+            "previous_kernel_vs_plain": previous}
         recs[name][tag] = case
         inputs[tag] = (q, k, v)
         del got, want, qt, kt, vt

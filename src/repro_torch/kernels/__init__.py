@@ -3,7 +3,7 @@
 The bridge pipeline runs ``boruvka_round``, ``frontier_round`` and
 ``segment_min``; SASRec's retrieval step runs ``embedding_bag``; no model
 calls ``flash_attention``, as in the JAX package (its op is the only path;
-bf16 goes to ``flash_attention_mma``, float32 to ``flash_attention``).
+bf16 goes to ``flash_attention_mma``, float32 to ``flash_attention_tf32x3``).
 Each kernel package keeps the JAX package's layout: ``ref.py`` holds the
 plain PyTorch version, ``kernel.py`` the wrapper that launches the CUDA
 kernel (sources in ``repro_torch/csrc``), ``ops.py`` the dispatch: the
@@ -20,8 +20,8 @@ LAUNCHERS = {
     "frontier_round": _boruvka_kernel.frontier_round_cuda,
     "segment_min": _segment_min_kernel.segment_min_cuda,
     "embedding_bag": _embedding_bag_kernel.embedding_bag_cuda,
-    "flash_attention": _flash_kernel.flash_attention_f32_cuda,
     "flash_attention_mma": _flash_kernel.flash_attention_mma_cuda,
+    "flash_attention_tf32x3": _flash_kernel.flash_attention_tf32x3_cuda,
 }
 
 

@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / name for name in (
     "connectivity_rounds.cu", "embedding_bag.cu", "flash_attention.cu",
-    "flash_attention_mma.cu"))
+    "flash_attention_mma.cu", "flash_attention_tf32x3.cu"))
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 #: flags of each source's compile (``-c``); the objects are then linked with
 #: ``-shared``
@@ -54,6 +54,9 @@ _SIGNATURES = {
     # q, k, v, out, batch, sq, skv, hq, hkv, d, scale, causal, stream
     "repro_flash_attention_mma": ([_P] * 4 + [ctypes.c_int] * 6
                                   + [ctypes.c_float, ctypes.c_int, _P]),
+    # the same as repro_flash_attention_mma
+    "repro_flash_attention_tf32x3": ([_P] * 4 + [ctypes.c_int] * 6
+                                     + [ctypes.c_float, ctypes.c_int, _P]),
 }
 
 

@@ -10,11 +10,17 @@ picks one by dtype and nothing else:
   tiles double buffered in shared memory with ``cp.async``, the online
   softmax in registers, and the probabilities split into two bf16 halves
   for the second product, so that they keep float32's accuracy.
-* float32 -> ``flash_attention_f32_cuda`` (``csrc/flash_attention.cu``), on
-  the float32 cores: the tensor cores' float32 path is TF32, which the
-  float32 contract rules out.
+* float32 -> ``flash_attention_tf32x3_cuda``
+  (``csrc/flash_attention_tf32x3.cu``): the same structure on
+  ``mma.sync.m16n8k8`` in TF32, every operand of both products split into
+  hi = tf32(x) and lo = tf32(x - hi) and three products summed (3xTF32),
+  which one TF32 product's 11-bit operands would not.
 
-A long prefill is bound by operations at the tensor cores' bf16 rate and
+``float32_core_kernel`` launches the first kernel of the port
+(``csrc/flash_attention.cu``, on the float32 cores), which no op reaches: a
+yardstick for the two above.
+
+A long prefill is bound by operations at the tensor cores' rate and
 decoding by the bytes of K and V (``ops.attention_flops``,
 ``ops.attention_bytes``).
 """
@@ -24,15 +30,15 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 
-#: head sizes both kernels are compiled for
+#: head sizes the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-#: query rows of one block in both kernels; the grid's second dimension
+#: query rows of one block in the kernels; the grid's second dimension
 #: counts these tiles and takes at most ``MAX_Q_TILES``
 Q_TILE = 64
 MAX_Q_TILES = 65535
 #: the kernel that takes each dtype, by its name in ``kernels.LAUNCHERS``
 KERNEL_OF = {torch.bfloat16: "flash_attention_mma",
-             torch.float32: "flash_attention"}
+             torch.float32: "flash_attention_tf32x3"}
 
 
 def _launch(entry: str, q, k, v, causal: bool, scale: float, *extra):
@@ -52,7 +58,7 @@ def _launch(entry: str, q, k, v, causal: bool, scale: float, *extra):
 
 
 def flash_attention_mma_cuda(q, k, v, causal: bool, scale: float):
-    """bf16 q, k, v: the tensor-core kernel."""
+    """bf16 q, k, v: the bf16 tensor-core kernel."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention_mma takes bf16, got {q.dtype}")
     out, launched = _launch("repro_flash_attention_mma", q, k, v, causal,
@@ -61,18 +67,18 @@ def flash_attention_mma_cuda(q, k, v, causal: bool, scale: float):
     return out
 
 
-def flash_attention_f32_cuda(q, k, v, causal: bool, scale: float):
-    """float32 q, k, v: the float32-core kernel."""
+def flash_attention_tf32x3_cuda(q, k, v, causal: bool, scale: float):
+    """float32 q, k, v: the 3xTF32 tensor-core kernel."""
     if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention takes float32, got {q.dtype}")
-    out, launched = _launch("repro_flash_attention", q, k, v, causal, scale,
-                            0)  # the entry's dtype code of float32
-    flash_attention_f32_cuda.launches += launched
+        raise TypeError(f"flash_attention_tf32x3 takes float32, got {q.dtype}")
+    out, launched = _launch("repro_flash_attention_tf32x3", q, k, v, causal,
+                            scale)
+    flash_attention_tf32x3_cuda.launches += launched
     return out
 
 
 flash_attention_mma_cuda.launches = 0
-flash_attention_f32_cuda.launches = 0
+flash_attention_tf32x3_cuda.launches = 0
 
 
 def flash_attention_cuda(q, k, v, causal: bool, scale: float):
@@ -81,5 +87,14 @@ def flash_attention_cuda(q, k, v, causal: bool, scale: float):
     if q.dtype == torch.bfloat16:
         return flash_attention_mma_cuda(q, k, v, causal, scale)
     if q.dtype == torch.float32:
-        return flash_attention_f32_cuda(q, k, v, causal, scale)
+        return flash_attention_tf32x3_cuda(q, k, v, causal, scale)
     raise TypeError(f"the kernels take {list(KERNEL_OF)}, got {q.dtype}")
+
+
+def float32_core_kernel(q, k, v, causal: bool, scale: float):
+    """The first kernel, on the float32 cores, for float32 or bf16 q, k, v
+    on the card, through its entry: a yardstick outside every op, its
+    launches not counted."""
+    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]  # entry's dtype
+    return _launch("repro_flash_attention", q.contiguous(), k.contiguous(),
+                   v.contiguous(), causal, scale, code)[0]

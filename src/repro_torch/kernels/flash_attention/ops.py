@@ -1,7 +1,8 @@
 """Public flash_attention op: the Hopper kernel of the dtype for CUDA
-tensors (bf16: ``flash_attention_mma``; float32: ``flash_attention``), the
-plain version for CPU tensors, and nothing else; and the gate that holds a
-kernel's output against the plain version's."""
+tensors (bf16: ``flash_attention_mma``; float32:
+``flash_attention_tf32x3``), the plain version for CPU tensors, and nothing
+else; and the gate that holds a kernel's output against the plain
+version's."""
 from __future__ import annotations
 
 import torch
@@ -77,7 +78,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] (the JAX layout), one
     dtype, Hq a multiple of Hkv -> [B, Sq, Hq, D] in q's dtype. Sq may
     differ from Skv: causal masking aligns the last query row with the last
-    key. Semantics of ``ref.attention_ref``."""
+    key; Skv = 0 raises ``ValueError``, as the JAX oracle does. Semantics
+    of ``ref.attention_ref``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B, Sq, Hq, D] and k, v one shape "
                          f"[B, Skv, Hkv, D]: {tuple(q.shape)}, "
@@ -90,6 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must lie on one device")
+    if k.shape[1] == 0:  # the oracle's max over no keys raises too
+        raise ValueError(f"k/v {tuple(k.shape)} hold no keys")
     scale = (d ** -0.5) if scale is None else float(scale)
     if kernel_path(q.device) == "cuda":
         if q.dtype not in KERNEL_OF:

@@ -113,11 +113,53 @@ def serve_scores(params, seq, cfg: SASRecConfig) -> torch.Tensor:
     return u @ params["item_emb"].T
 
 
+def _order_keys(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One int64 key per value of float32 ``x`` at position ``pos``, unique
+    and ordered as ``lax.top_k`` ranks: the value's bits as an
+    order-preserving int32 (IEEE total order: negative floats' magnitude
+    bits flipped, so -0.0 < +0.0 and NaN above +inf) above
+    ``2^31 - 1 - pos``."""
+    bits = x.float().contiguous().view(torch.int32)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    keys <<= 32
+    keys += (2**31 - 1) - pos
+    return keys
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of each row of float32 ``x`` and their positions,
+    in ``lax.top_k``'s order: descending by IEEE total order (NaN first,
+    +0.0 before -0.0) and, among equal values, the lower position first.
+    ``torch.topk`` promises no order among ties. Its selection is the right
+    set unless the (k+1)-th value equals the k-th (ties cross the k-th
+    place; +0.0 equals -0.0 there) or the row holds a NaN (``torch.topk``
+    puts every NaN first, a negative NaN too): those rows are selected
+    again by unique int64 keys (``_order_keys``), and the k are then put
+    in order by the same keys."""
+    n = x.shape[-1]
+    rows = x.reshape(-1, n)
+    vals, pos = torch.topk(rows, min(k + 1, n), dim=-1)
+    edge = vals[:, k - 1]
+    split = vals[:, 0].isnan()
+    if n > k:
+        split |= vals[:, k] == edge
+    pos = pos[:, :k]
+    if bool(split.any()):
+        at = split.nonzero()[:, 0]
+        every = torch.arange(n, device=x.device)
+        pos[at] = torch.topk(_order_keys(rows[at], every), k, dim=-1).indices
+    order = torch.topk(_order_keys(torch.gather(rows, -1, pos), pos), k,
+                       dim=-1).indices
+    pos = torch.gather(pos, -1, order).reshape(*x.shape[:-1], k)
+    return torch.gather(x, -1, pos), pos
+
+
 def _chunked_topk(u, rows_tbl, id_base: int, k: int, n_chunks: int):
     """Running top-k of ``u @ rows_tbl.T`` over row chunks: the JAX
     package's ``local_chunked_topk``, its scan a loop. The state starts at
     -inf scores with ids 0; the chunk count drops until it divides the
-    rows."""
+    rows. Ties go to the lower position (``top_k``): the state's ids lie
+    below the chunk's."""
     rows, d = rows_tbl.shape
     nc = max(min(n_chunks, rows), 1)
     while rows % nc:
@@ -132,7 +174,7 @@ def _chunked_topk(u, rows_tbl, id_base: int, k: int, n_chunks: int):
                                                  device=u.device)
         cat_s = torch.cat([best_s, s], dim=-1)
         cat_i = torch.cat([best_i, ids.expand(b, chunk)], dim=-1)
-        best_s, pos = torch.topk(cat_s, k, dim=-1)
+        best_s, pos = top_k(cat_s, k)
         best_i = torch.gather(cat_i, 1, pos)
     return best_s, best_i
 
@@ -151,7 +193,7 @@ def serve_bulk_topk(params, seq, cfg: SASRecConfig, k: int = 100,
                            n_chunks) for s in range(nsh)]
     ms = torch.cat([p[0] for p in parts], dim=-1)
     mi = torch.cat([p[1] for p in parts], dim=-1)
-    top_s, pos = torch.topk(ms, k, dim=-1)
+    top_s, pos = top_k(ms, k)
     return top_s, torch.gather(mi, 1, pos)
 
 

@@ -2,7 +2,7 @@
 connectivity kernels bit for bit, since their outputs are integers;
 embedding_bag within 1e-5 in float32; flash_attention within 2e-5 in
 float32 and 3e-2 in bf16, the plain version's products in full float32,
-TF32 off, and its bf16 kernel under the gate of ``ops.ATTN_GATES`` too),
+TF32 off, and both its kernels under the gate of ``ops.ATTN_GATES`` too),
 and the port's pipelines on the card against the same pipelines on the
 CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
 them where there is none. On the card:
@@ -35,6 +35,10 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention import (
     attention_gate,
     flash_attention,
+)
+from repro_torch.kernels.flash_attention.kernel import (
+    KERNEL_OF,
+    float32_core_kernel,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import segment_min
@@ -285,7 +289,7 @@ ATTN_CASES = [
     (1, 300, 300, 2, 2, 128),  # d_head = 128, ragged tiles
     (1, 70, 20, 2, 1, 64),     # Sq > Skv: causal rows 0-49 see no key
 ]
-#: the bf16 kernel's edges: (b, sq, skv, hq, hkv, d)
+#: the tensor-core kernels' edges: (b, sq, skv, hq, hkv, d)
 MMA_CASES = [
     (2, 77, 131, 4, 2, 64),      # Sq, Skv not multiples of 16 or 64
     (1, 45, 45, 2, 1, 128),      # one ragged tile each way
@@ -307,14 +311,13 @@ def _attn_inputs(case, dtype, device, seed):
 
 
 def _attn_launched(q, k, v, causal):
-    """One op call; asserts that it went through the kernel of q's dtype
-    and no other."""
+    """One op call; asserts that it launched the kernel of q's dtype
+    (bf16: flash_attention_mma, float32: flash_attention_tf32x3) once and
+    no other kernel."""
     reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
-    counts = launch_counts()
-    want_mma = int(q.dtype == torch.bfloat16)
-    assert counts["flash_attention_mma"] == want_mma
-    assert counts["flash_attention"] == 1 - want_mma
+    ran = {name: n for name, n in launch_counts().items() if n}
+    assert ran == {KERNEL_OF[q.dtype]: 1}
     return got
 
 
@@ -341,8 +344,7 @@ def test_flash_attention_kernel_equals_plain(cuda, case, causal, dtype, tol):
                                want.float().cpu().numpy(), atol=tol, rtol=tol)
     if causal and sq > skv:
         assert torch.isnan(got[:, : sq - skv]).all()
-    if dtype == torch.bfloat16:
-        _attn_gate(got, want, sq, skv, causal)
+    _attn_gate(got, want, sq, skv, causal)
 
 
 @pytest.mark.parametrize("case", MMA_CASES)
@@ -360,11 +362,50 @@ def test_flash_attention_mma_kernel_edges(cuda, case, causal):
     _attn_gate(got, want, sq, skv, causal)
 
 
-def test_flash_attention_mma_kernel_unaligned_views(cuda):
+@pytest.mark.parametrize("case", MMA_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tf32x3_kernel_edges(cuda, case, causal):
+    """The float32 kernel on the same edges, under the float32 gate."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, sq, skv, hq, hkv, d = case
+    q, k, v = _attn_inputs(case, torch.float32, cuda, seed=sum(case) + 2)
+    want = attention_ref(q, k, v, causal=causal)
+    got = _attn_launched(q, k, v, causal)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _attn_gate(got, want, sq, skv, causal)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_f32_core_kernel_equals_plain(cuda, case, dtype):
+    """The first, float32-core kernel, which no op reaches any more,
+    through its entry: still the plain version under the gate (the
+    yardstick that chip_smoke.py times); its launches are not counted."""
+    b, sq, skv, hq, hkv, d = case
+    q, k, v = _attn_inputs(case, dtype, cuda, seed=sum(case) + 3)
+    reset_launch_counts()
+    got = float32_core_kernel(q, k, v, True, d ** -0.5)
+    assert not any(launch_counts().values())
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_gate(got, attention_ref(q, k, v, causal=True), sq, skv, True)
+
+
+def test_flash_attention_refuses_no_keys(cuda):
+    q = torch.zeros((1, 3, 2, 16), device=cuda)
+    kv = torch.zeros((1, 0, 2, 16), device=cuda)
+    reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="no keys"):
+            flash_attention(q.to(dtype), kv.to(dtype), kv.to(dtype),
+                            causal=False)
+    assert not any(launch_counts().values())
+
+
+def _unaligned_views_agree(cuda, dtype):
     """Contiguous inputs whose data is not 16-byte aligned (views into a
     buffer at an odd offset) give the same output."""
     case = (1, 40, 90, 4, 2, 32)
-    q, k, v = _attn_inputs(case, torch.bfloat16, cuda, seed=5)
+    q, k, v = _attn_inputs(case, dtype, cuda, seed=5)
     shifted = []
     for x in (q, k, v):
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
@@ -375,6 +416,14 @@ def test_flash_attention_mma_kernel_unaligned_views(cuda):
     want = _attn_launched(q, k, v, True)
     got = _attn_launched(*shifted, True)
     assert torch.equal(got, want)
+
+
+def test_flash_attention_mma_kernel_unaligned_views(cuda):
+    _unaligned_views_agree(cuda, torch.bfloat16)
+
+
+def test_flash_attention_tf32x3_kernel_unaligned_views(cuda):
+    _unaligned_views_agree(cuda, torch.float32)
 
 
 def test_flash_attention_kernel_rejects_head_size(cuda):

@@ -206,8 +206,8 @@ def test_ops_validate_inputs_and_dispatch_on_cpu():
     # the CPU path runs the plain version and launches nothing
     assert launch_counts() == {"boruvka_round": 0, "frontier_round": 0,
                                "segment_min": 0, "embedding_bag": 0,
-                               "flash_attention": 0,
-                               "flash_attention_mma": 0}
+                               "flash_attention_mma": 0,
+                               "flash_attention_tf32x3": 0}
 
 
 def test_round_byte_model_matches_jax():

@@ -5,8 +5,10 @@ across by ``interop.sasrec_params_from_numpy`` and the sequences drawn by
 ``recsys_batches`` (identical in both packages).
 
 Tolerance 1e-5 on floats. Top-k ids must be equal wherever neighbouring
-scores differ by more than the tolerance: ``lax.top_k`` and
-``torch.topk`` may order ties differently.
+scores differ by more than the tolerance (near-ties: the two packages' float
+sums may differ in the last place), and equal outright on exact ties: the
+port's selection follows ``lax.top_k``'s order, IEEE total order with the
+lower position first among equal values.
 """
 import dataclasses
 
@@ -161,6 +163,75 @@ def test_serve_bulk_chunk_count_divides_rows(weights):
     want = j_rec.serve_bulk_topk(jparams, jnp.asarray(seq), J_CFG, None, k=5,
                                  n_chunks=7)
     _same_topk(*rec.serve_bulk_topk(params, seq, CFG, k=5, n_chunks=7), *want)
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_top_k_follows_lax_order(k):
+    """NaN first, +0.0 before -0.0, the lower position first on ties."""
+    x = np.array([0., -0., 1., 0., -0., 1., np.nan, -np.inf], np.float32)
+    want_s, want_i = jax.lax.top_k(jnp.asarray(x), k)
+    got_s, got_i = rec.top_k(torch.as_tensor(x), k)
+    assert got_i.tolist() == np.asarray(want_i).tolist()
+    assert np.array_equal(got_s.numpy().view(np.int32),
+                          np.asarray(want_s).view(np.int32))  # signed zeros
+
+
+def test_top_k_rows_with_ties():
+    """Rows of few distinct values, where ties cross the k-th place, beside
+    rows of distinct values and rows with NaN (negative NaN, which
+    ``lax.top_k`` ranks below -inf, too), batched."""
+    rng = np.random.default_rng(1)
+    x = rng.integers(-3, 3, (7, 40)).astype(np.float32)
+    x[1] = rng.normal(size=40)
+    x[2] *= -0.0  # signed zeros only
+    x[3, ::5] = np.nan
+    x[4, :30] = np.nan
+    x[6] = rng.normal(size=40)
+    x[6, ::3] = np.uint32(0xFFC00000).view(np.float32)  # -NaN
+    want_s, want_i = jax.lax.top_k(jnp.asarray(x), 17)
+    got_s, got_i = rec.top_k(torch.as_tensor(x), 17)
+    assert np.array_equal(got_i.numpy(), np.asarray(want_i))
+    assert np.array_equal(got_s.numpy().view(np.int32),
+                          np.asarray(want_s).view(np.int32))
+
+
+def test_serve_bulk_topk_ties_of_an_all_padding_history(weights):
+    """An all-padding history gives a zero user state: every score is 0
+    and the ids are the reference's, the lowest ids first."""
+    jparams, params = weights
+    seq = np.zeros((1, CFG.seq_len), np.int32)
+    want_s, want_i = j_rec.serve_bulk_topk(jparams, jnp.asarray(seq), J_CFG,
+                                           None, k=5, n_chunks=8)
+    got_s, got_i = rec.serve_bulk_topk(params, seq, CFG, k=5, n_chunks=8)
+    assert np.asarray(want_i).tolist() == [[0, 1, 2, 3, 4]]
+    assert np.array_equal(got_i.numpy(), np.asarray(want_i))
+    _close(got_s, want_s)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_serve_bulk_topk_ties_across_chunks_and_shards(weights, n_shards):
+    """A table of 256 rows repeated 8 times: every score ties with 7 others
+    that lie in other chunks (8 chunks of each shard) and other shards. The
+    ids must be the reference's, in its order."""
+    jparams, _ = weights
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    tree["item_emb"] = np.tile(tree["item_emb"][:CFG.n_items // 8], (8, 1))
+    params = sasrec_params_from_numpy(tree, CFG, device="cpu")
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    seq = _seq(step=7)
+    want_s, want_i = j_rec.serve_bulk_topk(jparams, jnp.asarray(seq), J_CFG,
+                                           None, k=20, n_chunks=8,
+                                           n_shards=n_shards)
+    got_s, got_i = rec.serve_bulk_topk(params, seq, CFG, k=20, n_chunks=8,
+                                       n_shards=n_shards)
+    _close(got_s, want_s)
+    want_s = np.asarray(want_s)
+    # runs of 8 equal scores, each run apart from the next by more than
+    # the tolerance, so the order of the runs is not a near-tie
+    runs = want_s[:, ::8]
+    assert (np.diff(want_s.reshape(len(seq), -1, 4), axis=-1) == 0).all()
+    assert (np.abs(np.diff(runs, axis=1)) > TOL).all()
+    assert np.array_equal(got_i.numpy(), np.asarray(want_i))
 
 
 def test_retrieval_scores(weights):
