@@ -10,7 +10,12 @@ Phases, one JSON line each:
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's shapes, bit for bit (tolerance 0: integer
              outputs); kernel, plain and library times with CUDA events
-             (warm-up, L2 flushed before every launch) beside the bound.
+             (warm-up, L2 flushed and a device-side wait queued before
+             every timed launch) beside the bound.
+             The Borůvka round at both label sets (identity, round 2) also
+             through the first kernel (``previous_kernel_ms``) and without
+             its per-block table, both held bit for bit too, and the
+             updates each design asks of ``best``.
 3. main    — ``repro_torch.find_bridges`` on the paper's Fig. 2 operating
              point (|V| = 100,000, |E| = 10,000,000, six planted bridges)
              with ``final="device"`` and ``final="host"``, each twice (cold,
@@ -26,14 +31,21 @@ Phases, one JSON line each:
              answer held against the planted truth; then each of those
              pipelines stage by stage (wall seconds per stage, rounds per
              certificate pass) and ``cuts`` with either final under
-             torch.profiler.
+             torch.profiler; then the summed device time of the Borůvka
+             round's launches in one ``find_bridges(final="device")`` and
+             one ``analyze(kind="cuts", final="host")``, with the
+             redesigned kernel and with the first one in its place.
 5. check   — small worlds on the card against the host oracles and the
              planted truth, every kind and final; the pipeline of every
              (kind, final, certificate) the registry allows on the card
              against the same pipeline on the CPU, buffer for buffer.
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
-             50) and at the train batch's (65,536 bags of 50), every mode;
+             50) and at the train batch's (65,536 bags of 50), every mode,
+             the first kernel timed beside it (``previous_kernel_ms``) and
+             an empty kernel's launch (``launch_floor_ms``); then the sweep
+             of the block kernel against the first one over 1 .. 65,536
+             bags that sets the threshold between them;
              ``flash_attention`` at Qwen3-0.6B's attention widths, causal:
              in bf16 (the tensor-core kernel ``flash_attention_mma``) a cut
              prefill and a cut decode, in float32 (the 3xTF32 tensor-core
@@ -63,6 +75,7 @@ exits non-zero and prints no result. Without a card it exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -103,7 +116,12 @@ from repro_torch.kernels.boruvka_round import (
     frontier_round,
     frontier_round_bytes,
 )
-from repro_torch.kernels.boruvka_round.kernel import PACKED_INF
+from repro_torch.kernels.boruvka_round import ops as boruvka_ops
+from repro_torch.kernels.boruvka_round.kernel import (
+    PACKED_INF,
+    boruvka_round_without_table,
+    previous_boruvka_round,
+)
 from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
@@ -115,6 +133,12 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag,
     embedding_bag_bytes,
     embedding_bag_bytes_read,
+)
+from repro_torch.kernels.embedding_bag.kernel import (
+    BLOCK_ITEMS_MAX,
+    block_embedding_bag,
+    launch_floor,
+    previous_embedding_bag,
 )
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention import (
@@ -146,6 +170,12 @@ F32_FLOPS_PER_S = 67e12
 #: exact float32 work there costs three TF32 products per product (3xTF32)
 TF32_FLOPS_PER_S = 494.7e12
 L2_FLUSH_BYTES = 256 << 20
+#: a device-side spin (about 0.11 ms on an H100) queued between the L2
+#: flush and a timed interval's start event: the host has queued the timed
+#: launch before the card reaches the start, so the interval holds device
+#: time and not the host's dispatch (which made one smoke run time the
+#: one-bag embedding_bag op at 0.024 ms against 0.0085 in the others)
+WAIT_CYCLES = 200_000
 SOURCE = "src/repro_torch/csrc/connectivity_rounds.cu"
 #: SASRec serving shapes: serve_p99's batch; serve_bulk's batch cut from
 #: 262,144 to 32,768 (smoke time and peak memory; each chunk's scores are
@@ -191,21 +221,35 @@ def nvidia_smi() -> str:
 
 def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of ``fn()`` over ``iters`` launches, each
-    after an L2 flush (a write of 256 MB, outside the timed interval)."""
-    for _ in range(warmup):
-        fn()
+    after an L2 flush (a write of 256 MB) and a device-side wait
+    (``WAIT_CYCLES``), both outside the timed interval."""
+    return time_turns({"fn": fn}, flush, iters, warmup)["fn"]
+
+
+def time_turns(fns: dict, flush, iters: int = 20, warmup: int = 3) -> dict:
+    """The median CUDA-event time of each function of ``fns`` (name ->
+    function) over ``iters`` launches, each after an L2 flush and a
+    device-side wait, both outside the timed interval; taken in turns, each
+    round timing every function once, the first of a round rotating, so
+    that drift of the card's clocks falls on all alike."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
     sync()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        sync()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    names = list(fns)
+    times = {name: [] for name in names}
+    for i in range(iters):
+        for name in names[i % len(names):] + names[:i % len(names)]:
+            flush.zero_()
+            torch.cuda._sleep(WAIT_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            sync()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -235,6 +279,30 @@ def phase_build() -> dict:
     return rec
 
 
+def boruvka_updates(src, dst, valid, labels, n: int) -> dict:
+    """What one Borůvka round asks of ``best`` on these inputs (endpoints
+    in range, as on the path): the cross slots, the (slot, side) updates
+    one thread per slot makes (the first kernel), and the updates left to
+    the redesign's run leaders. There each warp step takes 128 slots in
+    four sub-steps of 32 lanes, lane l on slot 4l + k; a slot's sides are
+    the labels of its smaller and larger endpoint; a lane leads where its
+    label differs from the previous lane's."""
+    lo = labels[torch.minimum(src, dst).long()]
+    hi = labels[torch.maximum(src, dst).long()]
+    cross = valid & (lo != hi)
+    lane = (torch.arange(src.numel(), device=src.device) % 128) // 4
+    updates, leaders, hit = 0, 0, []
+    for side in (lo, hi):
+        side = torch.where(cross & (side >= 0) & (side < n), side, -1)
+        prev = torch.roll(side, 4)
+        updates += int((side >= 0).sum())
+        leaders += int(((side >= 0) & ((lane == 0) | (side != prev))).sum())
+        hit.append(side[side >= 0])
+    return {"cross_slots": int(cross.sum()), "updates_per_slot": updates,
+            "updates_by_run_leaders": leaders,
+            "labels_updated": int(torch.unique(torch.cat(hit)).numel())}
+
+
 def phase_kernels(el, flush) -> dict:
     """Every kernel at the main path's shapes against its plain version."""
     n = el.n_nodes
@@ -254,14 +322,24 @@ def phase_kernels(el, flush) -> dict:
     errs = []
     for tag, labels in (("identity", ident), ("round2", round2)):
         args = (el.src, el.dst, valid, labels, n)
+        want = boruvka_round_ref(*args)
         errs.append(require_equal(f"boruvka_round[{tag}]",
-                                  boruvka_round(*args),
-                                  boruvka_round_ref(*args)))
-        b_rec[f"ms_{tag}"] = time_ms(lambda: boruvka_round(*args), flush)
+                                  boruvka_round(*args), want))
+        for name, fn in (("previous_kernel", previous_boruvka_round),
+                         ("without_table", boruvka_round_without_table)):
+            require_equal(f"boruvka_round[{tag}][{name}]", fn(*args), want)
+        turns = time_turns(
+            {"ms": lambda: boruvka_round(*args),
+             "previous_kernel_ms": lambda: previous_boruvka_round(*args),
+             "without_table_ms": lambda: boruvka_round_without_table(*args)},
+            flush)
+        b_rec.update({f"{key}_{tag}": ms for key, ms in turns.items()})
         b_rec[f"plain_ms_{tag}"] = time_ms(lambda: boruvka_round_ref(*args),
                                            flush)
+        b_rec[f"updates_{tag}"] = boruvka_updates(*args)
     b_rec.update(max_abs_err=max(errs), ms=b_rec["ms_identity"],
                  plain_ms=b_rec["plain_ms_identity"],
+                 previous_kernel_ms=b_rec["previous_kernel_ms_identity"],
                  components_round2=int(torch.unique(round2).numel()))
 
     # segment_min at the device final's shapes: one key per arc of the
@@ -449,11 +527,61 @@ def phase_profile(label: str, call, check) -> dict:
         rec[1] += b - a
     busy_s = _busy_us([(a, b) for _, a, b in spans]) / 1e6 if spans else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    # the port's kernels, each summed over every event whose name holds its
+    # own (frontier_round's split kernel unpack_pairs_kernel not included)
+    ours = {kernel: {"count": sum(c for n, (c, _) in by_name.items()
+                                  if kernel in n),
+                     "us": sum(t for n, (_, t) in by_name.items()
+                               if kernel in n)}
+            for kernel in launch_counts()}
     rec = {"phase": "profile", "run": label, "wall_s": wall,
            "device_events": len(spans), "device_busy_s": busy_s,
            "idle_share": None if busy_s is None else 1 - busy_s / wall,
+           "ours": {k: v for k, v in ours.items() if v["count"]},
            "by_kernel": [{"name": n[:100], "count": c, "us": t}
                          for n, (c, t) in top]}
+    emit(rec)
+    return rec
+
+
+@contextlib.contextmanager
+def previous_boruvka_round_on_path():
+    """The Borůvka op's kernel swapped for the first one for the block's
+    duration: the same-run "before" of the path's Borůvka device time."""
+    saved = boruvka_ops.boruvka_round_cuda
+    boruvka_ops.boruvka_round_cuda = previous_boruvka_round
+    try:
+        yield
+    finally:
+        boruvka_ops.boruvka_round_cuda = saved
+
+
+def phase_boruvka_path(src, dst, planted, truth) -> dict:
+    """The summed device time of every Borůvka round launch in one warm
+    ``find_bridges(final="device")`` and one warm ``analyze(kind="cuts",
+    final="host")``, from torch.profiler: with the redesigned kernel, with
+    the first one in its place, and again with the redesigned one."""
+    calls = {"find_bridges(final='device')":
+             (lambda: find_bridges(src, dst, N_NODES, final="device"),
+              lambda got: got == planted),
+             run_label("cuts", "host", None):
+             (lambda: analyze(src, dst, N_NODES, kind="cuts", final="host"),
+              lambda got: got == truth["cuts"])}
+    rec = {"phase": "boruvka_round_path"}
+    for label, (call, check) in calls.items():
+        runs = []
+        for kernel in ("redesign", "previous", "redesign"):
+            with (previous_boruvka_round_on_path() if kernel == "previous"
+                  else contextlib.nullcontext()):
+                prof = phase_profile(f"{label} [{kernel} boruvka_round]",
+                                     call, check)
+            runs.append({"kernel": kernel,
+                         **prof["ours"].get("boruvka_round",
+                                            {"count": 0, "us": 0.0})})
+        if len({run["count"] for run in runs}) != 1 or not runs[0]["count"]:
+            raise AssertionError(f"{label}: Borůvka launches differ between "
+                                 f"kernels: {runs}")
+        rec[label] = runs
     emit(rec)
     return rec
 
@@ -679,21 +807,33 @@ def bag_library(table, idx, mask, mode: str):
                                                      mode=mode)
 
 
+def bag_histories(n_rows: int, batch: int, dev) -> tuple:
+    """``batch`` SASRec histories of ``recsys_batches`` (seeded), right
+    aligned, on the card, and their mask (padding id 0 masked)."""
+    seq = right_aligned(recsys_batches(n_rows, batch, SASREC.seq_len,
+                                       seed=SEED)(0)["seq"])
+    idx = torch.as_tensor(seq, device=dev)
+    return idx, idx != 0
+
+
 def check_embedding_bag(table, flush) -> dict:
     """``embedding_bag`` on SASRec's item table against its plain version
     and the library call, every mode, at the retrieval step's shape (one
     bag of 50) and at the train batch's (65,536 bags of 50), on histories
-    of ``recsys_batches`` with the padding masked. Tolerance: rtol 1e-5,
-    atol 1e-6 in float32 (the sums run in another order). The bound counts
-    the sectors of the distinct rows each mode reads
-    (``embedding_bag_bytes_read``); ``lookup_bytes`` counts a row once per
-    lookup, which is more than the call must move."""
+    of ``recsys_batches`` with the padding masked; the first kernel
+    (``previous_embedding_bag``) held to the same tolerance and timed
+    beside it. Tolerance: rtol 1e-5, atol 1e-6 in float32 (the sums run in
+    another order). The bound counts the sectors of the distinct rows each
+    mode reads (``embedding_bag_bytes_read``); ``lookup_bytes`` counts a row
+    once per lookup, which is more than the call must move.
+    ``launch_floor_ms`` is the interval of an empty kernel's launch."""
     n_rows, dim = table.shape
     rec = {"name": "embedding_bag", "route": "cuda",
            "path": kernel_path(table.device),
            "source": "src/repro_torch/csrc/embedding_bag.cu",
            "replaces": "src/repro/kernels/embedding_bag/kernel.py:60",
            "bound_by": "bytes", "tolerance": {"rtol": 1e-5, "atol": 1e-6},
+           "block_items_max": BLOCK_ITEMS_MAX,
            "library_note": "torch.nn.functional.embedding_bag on the same "
                            "bags, masked entries dropped through offsets "
                            "(that conversion untimed)"}
@@ -701,10 +841,7 @@ def check_embedding_bag(table, flush) -> dict:
     for tag, batch in (("retrieval", 1),
                        ("train_batch",
                         RECSYS_SHAPES["train_batch"]["batch"])):
-        seq = right_aligned(recsys_batches(n_rows, batch, SASREC.seq_len,
-                                           seed=SEED)(0)["seq"])
-        idx = torch.as_tensor(seq, device=table.device)
-        mask = idx != 0
+        idx, mask = bag_histories(n_rows, batch, table.device)
         shape = {"B": batch, "L": SASREC.seq_len, "V": n_rows, "D": dim,
                  "valid_entries": int(mask.sum()),
                  "lookup_bytes": embedding_bag_bytes(batch, SASREC.seq_len,
@@ -714,19 +851,24 @@ def check_embedding_bag(table, flush) -> dict:
             got = embedding_bag(table, idx, mask, mode)
             want = embedding_bag_ref(table, idx, mask, mode)
             library = bag_library(table, idx, mask, mode)
-            for name, other in (("plain", want), ("library", library())):
-                if not torch.allclose(got, other, rtol=1e-5, atol=1e-6):
+            for name, a, b in (
+                    ("plain", got, want), ("library", got, library()),
+                    ("previous kernel vs plain",
+                     previous_embedding_bag(table, idx, mask, mode), want)):
+                if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
                     raise AssertionError(
                         f"embedding_bag[{tag}, {mode}] differs from the "
                         f"{name} version: max abs err "
-                        f"{float((got - other).abs().max())}")
+                        f"{float((a - b).abs().max())}")
             err = float((got - want).abs().max())
             errs.append(err)
             shape[mode] = {
                 "max_abs_err": err, "bound_bytes": nbytes,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "ms": time_ms(lambda: embedding_bag(table, idx, mask, mode),
-                              flush),
+                **time_turns(
+                    {"ms": lambda: embedding_bag(table, idx, mask, mode),
+                     "previous_kernel_ms": lambda: previous_embedding_bag(
+                         table, idx, mask, mode)}, flush),
                 "plain_ms": time_ms(
                     lambda: embedding_bag_ref(table, idx, mask, mode), flush,
                     iters=5),
@@ -736,10 +878,52 @@ def check_embedding_bag(table, flush) -> dict:
     rec.update(shape={"B": 1, "L": SASREC.seq_len, "V": n_rows, "D": dim,
                       "mode": "mean"},
                max_abs_err=max(errs), ms=path_shape["mean"]["ms"],
+               previous_kernel_ms=path_shape["mean"]["previous_kernel_ms"],
                plain_ms=path_shape["mean"]["plain_ms"],
                library_ms=path_shape["mean"]["library_ms"],
                bound_ms=path_shape["mean"]["bound_ms"],
-               bound_bytes=path_shape["mean"]["bound_bytes"])
+               bound_bytes=path_shape["mean"]["bound_bytes"],
+               launch_floor_ms=time_ms(lambda: launch_floor(table.device),
+                                       flush))
+    return rec
+
+
+#: bag counts of the threshold sweep: 1, 2, 4, ..., 65,536
+SWEEP_BAGS = [2 ** k for k in range(17)]
+
+
+def sweep_embedding_bag(table, flush) -> dict:
+    """The block kernel against the first kernel at every bag count of
+    ``SWEEP_BAGS`` (histories of 50, D 50, mean; at D <= 64 a bag is one
+    work item), each held against the plain version; the block kernel
+    wins up to ``block_wins_up_to`` bags, which ``BLOCK_ITEMS_MAX`` follows."""
+    idx_all, mask_all = bag_histories(table.shape[0], SWEEP_BAGS[-1],
+                                      table.device)
+    points = []
+    for batch in SWEEP_BAGS:
+        idx, mask = idx_all[:batch], mask_all[:batch]
+        want = embedding_bag_ref(table, idx, mask, "mean")
+        for name, fn in (("block", block_embedding_bag),
+                         ("previous", previous_embedding_bag)):
+            got = fn(table, idx, mask, "mean")
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"embedding_bag sweep B={batch}: the "
+                                     f"{name} kernel differs from the plain "
+                                     f"version")
+        points.append({"B": batch, **time_turns(
+            {"block_ms": lambda: block_embedding_bag(table, idx, mask,
+                                                     "mean"),
+             "previous_kernel_ms": lambda: previous_embedding_bag(
+                 table, idx, mask, "mean")}, flush)})
+    wins = 0
+    for point in points:
+        if point["block_ms"] > point["previous_kernel_ms"]:
+            break
+        wins = point["B"]
+    rec = {"phase": "embedding_bag_sweep", "L": SASREC.seq_len,
+           "D": table.shape[1], "mode": "mean", "points": points,
+           "block_wins_up_to": wins, "block_items_max": BLOCK_ITEMS_MAX}
+    emit(rec)
     return rec
 
 
@@ -1039,6 +1223,7 @@ def main() -> int:
                       lambda: analyze(src, dst, N_NODES, kind=kind,
                                       final=final),
                       lambda got: got == truth[kind])
+    phase_boruvka_path(src, dst, planted, truth)
     phase_check()
 
     # the plain versions' float32 products run in full float32
@@ -1049,6 +1234,7 @@ def main() -> int:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     checks["embedding_bag"] = check_embedding_bag(params["item_emb"], flush)
     emit({"phase": "kernel_check", **checks["embedding_bag"]})
+    sweep_embedding_bag(params["item_emb"], flush)
     attn_checks, attn_runs = check_flash_attention(flush,
                                                    torch.device("cuda"))
     for rec in attn_checks.values():
@@ -1072,7 +1258,9 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"]})
+            "library_ms": rec["library_ms"],
+            **({"previous_kernel_ms": rec["previous_kernel_ms"]}
+               if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)
     emit({"kernels": kernels, "build_s": build["nvcc_s"]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,9 +28,44 @@
 // monotone, so a stale read is never below the slot's current value and
 // skipping is exact.
 //
+// The Borůvka round, redesigned (boruvka_round_warp_kernel). The bridge
+// pipeline's buffer is sorted by each slot's smaller endpoint, so the lanes
+// of a warp mostly share one endpoint, and from the second round on every
+// cross slot aims at one of a few components. Both make many lanes update
+// one entry of best. So:
+//   (a) a slot's two labels are ordered by its endpoints' ids, so the
+//       shared smaller endpoint's label lies on one side in every lane;
+//       per side, a lane whose label differs from the previous lane's
+//       (one __shfl_up_sync) leads a run of equal labels. Slots ascend
+//       with the lane, so the leader holds the run's least key, and it
+//       alone updates. Lanes with nothing to update carry kNoLabel and
+//       still take part (full mask). (__match_any_sync, which groups
+//       every lane of a label, cost 0.055 ms of a 0.2 ms round on the
+//       H100: tools/profile_boruvka_round.py);
+//   (b) each thread takes four consecutive slots: 16-byte loads of src and
+//       dst, a 4-byte load of mask, and scalar slots before the first
+//       16-byte boundary and after the last whole group;
+//   (c) a persistent grid (the blocks the SMs hold at once) walks the
+//       buffer in slot order;
+//   (d) each block keeps a shared-memory table of (label, minimum) that
+//       takes the run leaders' updates and is flushed into best with
+//       min_into at the block's end; a label whose bucket of four
+//       entries is full goes straight to best.
+// Integer min does not depend on order, so the result is the plain
+// scatter-min's, bit for bit. What bounds it (the stage-by-stage profile,
+// tools/profile_boruvka_round.py, on an H100 at the bridge pipeline's
+// 2^24 slots): the first round, every label distinct, by the rate of the
+// run leaders' scattered reads of best in L2 (10.7 M reads, 0.12 ms of
+// 0.21; issuing them ahead does not help); later rounds, a few hundred
+// labels, by the loads of the slots (0.046 ms of 0.088), since the table
+// keeps the hot entries of best off L2. repro_boruvka_round_v1 launches the first
+// kernel (boruvka_round_kernel, one thread per slot): the yardstick.
+//
 // Every entry point returns cudaGetLastError() after its launch; the
 // Python wrappers raise on a non-zero code.
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -78,6 +113,164 @@ __global__ void __launch_bounds__(kThreads) boruvka_round_kernel(
       min_into(best + lu, key);
     if (static_cast<unsigned>(lv) < static_cast<unsigned>(num_segments))
       min_into(best + lv, key);
+  }
+}
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kVec = 4;          // slots per thread in the 16-byte part
+constexpr int kNoLabel = -1;     // a lane with nothing to update
+constexpr int kBucketBits = 8;   // buckets of the per-block table: 2^8
+constexpr int kBucketSlots = 4;  // (label, min) entries of one bucket
+
+// A block's (label, min) table: a label lives in one entry of its bucket.
+// Entries are only ever claimed, never freed, so a stale read of a label
+// entry is safe: a claimed entry never changes, and a free one is claimed
+// by atomicCAS, which tells the truth.
+struct LabelTable {
+  int label[kBucketSlots << kBucketBits];  // kNoLabel where free
+  int key[kBucketSlots << kBucketBits];
+};
+
+// key into the table's entry of label, or into best[label] when its bucket
+// has no entry for it.
+template <bool kTable>
+__device__ __forceinline__ void update(LabelTable& table, int* best,
+                                       int label, int key) {
+  if (kTable) {
+    const int first =
+        kBucketSlots *
+        static_cast<int>((static_cast<unsigned>(label) * 0x9E3779B1u) >>
+                         (32 - kBucketBits));
+    const int4 seen = *reinterpret_cast<const int4*>(table.label + first);
+    const int held[kBucketSlots] = {seen.x, seen.y, seen.z, seen.w};
+#pragma unroll
+    for (int p = 0; p < kBucketSlots; ++p) {
+      int h = held[p];
+      if (h == kNoLabel) {
+        h = atomicCAS(table.label + first + p, kNoLabel, label);
+        if (h == kNoLabel) h = label;
+      }
+      if (h == label) {
+        if (table.key[first + p] > key) atomicMin(table.key + first + p, key);
+        return;
+      }
+    }
+  }
+  min_into(best + label, key);
+}
+
+// The warp's lanes each hold one slot's key, ascending with the lane, and
+// one label (kNoLabel: nothing to update). A lane whose label differs from
+// the previous lane's starts a run of equal labels and holds the run's
+// least key: it alone updates. A label that comes back later in the warp
+// starts another run and updates again, which min absorbs.
+template <bool kTable>
+__device__ __forceinline__ void warp_update(LabelTable& table, int* best,
+                                            int label, int key, int lane) {
+  const int prev = __shfl_up_sync(kFullMask, label, 1);
+  if (label != kNoLabel && (lane == 0 || prev != label))
+    update<kTable>(table, best, label, key);
+}
+
+// The labels one slot updates: kNoLabel on both sides unless the slot is
+// live, not a self-loop and crosses two components; then the label of its
+// smaller gathered endpoint (lo) and of its larger one (hi), each where it
+// lies in [0, num_segments). On a buffer sorted by smaller endpoint, lo
+// repeats across neighbouring lanes.
+__device__ __forceinline__ void cross_labels(bool live, int u, int v,
+                                             const int* __restrict__ labels,
+                                             int n_labels, int num_segments,
+                                             int& lo, int& hi) {
+  lo = kNoLabel;
+  hi = kNoLabel;
+  if (!live || u == v) return;
+  const int gu = gather_index(u, n_labels);
+  const int gv = gather_index(v, n_labels);
+  const int a = __ldg(labels + min(gu, gv));
+  const int b = __ldg(labels + max(gu, gv));
+  if (a == b) return;
+  if (static_cast<unsigned>(a) < static_cast<unsigned>(num_segments)) lo = a;
+  if (static_cast<unsigned>(b) < static_cast<unsigned>(num_segments)) hi = b;
+}
+
+// best as boruvka_round_kernel computes it. Slots [0, head) and
+// [head + 4 * n_vec, e) one per lane; [head, head + 4 * n_vec) four per
+// lane, src + head and dst + head 16-byte aligned and mask + head 4-byte
+// aligned. Each warp walks its part in slot order, 32 lanes at a time.
+template <bool kTable>
+__global__ void __launch_bounds__(kThreads) boruvka_round_warp_kernel(
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const unsigned char* __restrict__ mask, const int* __restrict__ labels,
+    int* best, long long e, long long head, long long n_vec, int n_labels,
+    int num_segments) {
+  __shared__ LabelTable table;
+  if (kTable) {
+    for (int s = threadIdx.x; s < (kBucketSlots << kBucketBits);
+         s += kThreads) {
+      table.label[s] = kNoLabel;
+      table.key[s] = kInf32;
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long tail = head + kVec * n_vec;
+
+  // the scalar slots: [0, head) then [tail, e)
+  for (int part = 0; part < 2; ++part) {
+    const long long from = part == 0 ? 0 : tail;
+    const long long to = part == 0 ? head : e;
+    for (long long base = from + warp * 32; base < to; base += warps * 32) {
+      const long long i = base + lane;
+      const bool in = i < to;
+      int lo, hi;
+      cross_labels(in && mask[i], in ? src[i] : 0, in ? dst[i] : 0, labels,
+                   n_labels, num_segments, lo, hi);
+      const int key = static_cast<int>(i);
+      warp_update<kTable>(table, best, lo, key, lane);
+      warp_update<kTable>(table, best, hi, key, lane);
+    }
+  }
+
+  // the 16-byte part: lane l of a warp's step takes slots 4l .. 4l + 3 of
+  // 128, so in sub-step k the slots ascend with the lane
+  const int4* src4 = reinterpret_cast<const int4*>(src + head);
+  const int4* dst4 = reinterpret_cast<const int4*>(dst + head);
+  const unsigned* mask4 = reinterpret_cast<const unsigned*>(mask + head);
+  for (long long g0 = warp * 32; g0 < n_vec; g0 += warps * 32) {
+    const long long g = g0 + lane;
+    int4 s4 = make_int4(0, 0, 0, 0);
+    int4 d4 = s4;
+    unsigned m4 = 0;
+    if (g < n_vec) m4 = __ldcs(mask4 + g);
+    if (m4) {  // the endpoints of four masked slots are never read
+      s4 = __ldcs(src4 + g);
+      d4 = __ldcs(dst4 + g);
+    }
+    const int su[kVec] = {s4.x, s4.y, s4.z, s4.w};
+    const int sv[kVec] = {d4.x, d4.y, d4.z, d4.w};
+    int lo[kVec], hi[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      cross_labels(((m4 >> (8 * k)) & 0xffu) != 0, su[k], sv[k], labels,
+                   n_labels, num_segments, lo[k], hi[k]);
+    const int key0 = static_cast<int>(head + kVec * g);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      warp_update<kTable>(table, best, lo[k], key0 + k, lane);
+      warp_update<kTable>(table, best, hi[k], key0 + k, lane);
+    }
+  }
+
+  if (kTable) {
+    __syncthreads();
+    for (int s = threadIdx.x; s < (kBucketSlots << kBucketBits);
+         s += kThreads) {
+      const int label = table.label[s];
+      if (label != kNoLabel) min_into(best + label, table.key[s]);
+    }
   }
 }
 
@@ -156,13 +349,65 @@ unsigned grid_for(long long e) {
   return static_cast<unsigned>(blocks);
 }
 
+// The blocks of one persistent grid of kernel: as many as the device's SMs
+// hold at once, cached per device.
+template <bool kTable>
+long long resident_blocks() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int sms = 0;
+  int per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, boruvka_round_warp_kernel<kTable>, kThreads, 0);
+  const int blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < 64) cached[dev] = blocks;
+  return blocks;
+}
+
 }  // namespace
 
+// table: 1 with the per-block (label, min) table, 0 without (a yardstick).
 extern "C" int repro_boruvka_round(const int* src, const int* dst,
                                    const unsigned char* mask,
                                    const int* labels, int* best, long long e,
-                                   int n_labels, int num_segments,
+                                   int n_labels, int num_segments, int table,
                                    void* stream) {
+  // the 16-byte part starts where src is 16-byte aligned; it needs dst
+  // 16-byte and mask 4-byte aligned at the same slot, else every slot is
+  // scalar
+  const unsigned long long s = reinterpret_cast<unsigned long long>(src);
+  const unsigned long long d = reinterpret_cast<unsigned long long>(dst);
+  const unsigned long long m = reinterpret_cast<unsigned long long>(mask);
+  long long head = static_cast<long long>((16 - (s & 15)) & 15) / 4;
+  if (s % 4 || (d + 4 * head) % 16 || (m + head) % 4 || head > e) head = e;
+  const long long n_vec = (e - head) / kVec;
+  const long long steps = (n_vec + 31) / 32 + 2;  // warp steps, + 2 scalar
+  const long long wanted = (steps + kThreads / 32 - 1) / (kThreads / 32);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (table) {
+    const long long blocks = std::min(resident_blocks<true>(), wanted);
+    boruvka_round_warp_kernel<true><<<static_cast<unsigned>(blocks), kThreads,
+                                      0, st>>>(src, dst, mask, labels, best, e,
+                                               head, n_vec, n_labels,
+                                               num_segments);
+  } else {
+    const long long blocks = std::min(resident_blocks<false>(), wanted);
+    boruvka_round_warp_kernel<false><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, st>>>(
+        src, dst, mask, labels, best, e, head, n_vec, n_labels, num_segments);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first kernel, one thread per slot: a yardstick no op reaches.
+extern "C" int repro_boruvka_round_v1(const int* src, const int* dst,
+                                      const unsigned char* mask,
+                                      const int* labels, int* best,
+                                      long long e, int n_labels,
+                                      int num_segments, void* stream) {
   boruvka_round_kernel<<<grid_for(e), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       src, dst, mask, labels, best, e, n_labels, num_segments);

@@ -3,12 +3,19 @@
 ``boruvka_round_cuda`` replaces ``src/repro/kernels/boruvka_round/kernel.py::
 boruvka_round_pallas`` (body ``_boruvka_round_kernel``, streaming
 ``_stream_chunks``). The CUDA kernel
-(``csrc/connectivity_rounds.cu::boruvka_round_kernel``) makes one
-grid-stride pass, one thread per edge slot: test ``mask`` and
-``src != dst``, gather both endpoint labels (the int32[n] label array stays
-in L2), and where they differ ``atomicMin`` the slot index into both
-labels' entries of ``best``. It is bound by bytes: the 9 B edge slot read
-once, plus 4 B per label read and 4 B per output written.
+(``csrc/connectivity_rounds.cu::boruvka_round_warp_kernel``) walks the edge
+buffer in slot order on a persistent grid, four slots per thread (16-byte
+loads of ``src`` and ``dst``): it tests ``mask`` and ``src != dst``, gathers
+both endpoint labels (the int32[n] label array stays in L2), and where they
+differ the slot index goes to both labels' entries of ``best``. Neighbouring
+lanes of a warp that share a label send one update, their lowest slot (the
+run's first lane, found by one warp shuffle), into a per-block
+shared-memory table of (label, minimum) that is flushed into ``best`` with
+``atomicMin`` at the block's end. Its byte bound: the 9 B edge slot read once, plus 4 B per label read
+and 4 B per output written (``ops.boruvka_round_bytes``); the gathers and
+updates are what hold it above that. ``previous_boruvka_round`` launches
+the first kernel of the port (``boruvka_round_kernel``, one thread per
+slot), which no op reaches: the yardstick.
 
 ``frontier_round_cuda`` replaces ``frontier_round_pallas`` of the same file
 (body ``_frontier_round_kernel``). ``frontier_round_kernel`` makes the same
@@ -30,19 +37,44 @@ from repro_torch.kernels import cuda_lib
 PACKED_INF = (INF32 << 32) | INF32
 
 
-def boruvka_round_cuda(src, dst, mask, labels, num_segments: int):
-    """Launch the kernel on CUDA tensors validated by ``ops.boruvka_round``."""
+def _round_launch(entry: str, src, dst, mask, labels, num_segments: int,
+                  *extra) -> tuple:
+    """``best`` of one Borůvka round by C entry ``entry`` (INF32-filled, then
+    launched unless there is no slot or no segment) and whether it
+    launched."""
     best = torch.full((num_segments,), INF32, dtype=INT, device=src.device)
     e = src.numel()
-    if e and num_segments:
-        cuda_lib.launch("repro_boruvka_round", src.device, src.data_ptr(),
-                        dst.data_ptr(), mask.data_ptr(), labels.data_ptr(),
-                        best.data_ptr(), e, labels.numel(), num_segments)
-        boruvka_round_cuda.launches += 1
+    launched = bool(e and num_segments)
+    if launched:
+        cuda_lib.launch(entry, src.device, src.data_ptr(), dst.data_ptr(),
+                        mask.data_ptr(), labels.data_ptr(), best.data_ptr(),
+                        e, labels.numel(), num_segments, *extra)
+    return best, launched
+
+
+def boruvka_round_cuda(src, dst, mask, labels, num_segments: int):
+    """Launch the kernel on CUDA tensors validated by ``ops.boruvka_round``."""
+    best, launched = _round_launch("repro_boruvka_round", src, dst, mask,
+                                   labels, num_segments, 1)
+    boruvka_round_cuda.launches += launched
     return best
 
 
 boruvka_round_cuda.launches = 0
+
+
+def boruvka_round_without_table(src, dst, mask, labels, num_segments: int):
+    """The kernel without its per-block table, each group's update straight
+    into ``best``: a yardstick outside every op, its launches not counted."""
+    return _round_launch("repro_boruvka_round", src, dst, mask, labels,
+                         num_segments, 0)[0]
+
+
+def previous_boruvka_round(src, dst, mask, labels, num_segments: int):
+    """The first kernel (one thread per slot), on validated CUDA tensors: a
+    yardstick outside every op, its launches not counted."""
+    return _round_launch("repro_boruvka_round_v1", src, dst, mask, labels,
+                         num_segments)[0]
 
 
 def frontier_round_cuda(src, dst, mask, frontier, visited, num_segments: int):

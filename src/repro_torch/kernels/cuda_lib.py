@@ -34,9 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # src, dst, mask, labels, best, e, n_labels, num_segments, stream
+    # src, dst, mask, labels, best, e, n_labels, num_segments, table, stream
     "repro_boruvka_round": [_P, _P, _P, _P, _P, ctypes.c_longlong,
-                            ctypes.c_int, ctypes.c_int, _P],
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    # src, dst, mask, labels, best, e, n_labels, num_segments, stream
+    "repro_boruvka_round_v1": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_int, _P],
     # src, dst, mask, frontier, visited, packed, best_p, best_e, e,
     # n_nodes, num_segments, stream
     "repro_frontier_round": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -45,8 +48,13 @@ _SIGNATURES = {
     # keys, ids, out, e, num_segments, stream
     "repro_segment_min": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
     # table, idx, mask, out, n_bags, bag_len, n_rows, dim, mode, dtype,
+    # block_items_max, stream
+    "repro_embedding_bag": ([_P, _P, _P, _P] + [ctypes.c_int] * 6
+                            + [ctypes.c_longlong, _P]),
+    # the same without block_items_max
+    "repro_embedding_bag_v1": [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_P],
     # stream
-    "repro_embedding_bag": [_P, _P, _P, _P] + [ctypes.c_int] * 6 + [_P],
+    "repro_noop": [_P],
     # q, k, v, out, batch, sq, skv, hq, hkv, d, scale, causal, dtype, stream
     "repro_flash_attention": ([_P] * 4 + [ctypes.c_int] * 6
                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,

@@ -24,6 +24,10 @@ from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
 from repro_torch.kernels import cuda_lib, launch_counts, reset_launch_counts
 from repro_torch.kernels.boruvka_round import boruvka_round, frontier_round
+from repro_torch.kernels.boruvka_round.kernel import (
+    boruvka_round_without_table,
+    previous_boruvka_round,
+)
 from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
@@ -31,6 +35,11 @@ from repro_torch.kernels.boruvka_round.ref import (
 from repro_torch.configs import sasrec
 from repro_torch.data.pipeline import recsys_batches
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag.kernel import (
+    BLOCK_ITEMS_MAX,
+    block_embedding_bag,
+    previous_embedding_bag,
+)
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention import (
     attention_gate,
@@ -137,6 +146,92 @@ def test_boruvka_round_kernel_wraps_negative_ids(cuda):
     want = boruvka_round_ref(src, dst, mask, labels, 513)
     got = boruvka_round(*[t.to(cuda) for t in (src, dst, mask, labels)], 513)
     assert torch.equal(got.cpu(), want)
+
+
+def _sorted_buffer(e, n, seed):
+    """Slots sorted by their smaller endpoint, as the bridge pipeline's
+    buffer is (either endpoint may be ``src``), with self-loops and masked
+    slots."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n, e).astype(np.int32)
+    v = rng.integers(0, n, e).astype(np.int32)
+    v = np.where(rng.random(e) < 0.05, u, v)
+    order = np.lexsort((np.maximum(u, v), np.minimum(u, v)))
+    mask = rng.random(e) >= 0.1
+    return [torch.as_tensor(x) for x in (u[order], v[order], mask)]
+
+
+def _few_components(n, k, seed):
+    """Labels of ``k`` components, each named by one of its vertices."""
+    rng = np.random.default_rng(seed)
+    roots = rng.choice(n, k, replace=False).astype(np.int32)
+    return torch.as_tensor(roots[rng.integers(0, k, n)])
+
+
+def _at_offset(t, offset, device):
+    """A contiguous copy of ``t`` on ``device`` that starts ``offset``
+    elements into a buffer of its own."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+    view = buf[offset:]
+    view.copy_(t)
+    assert view.is_contiguous()
+    return view
+
+
+def _rounds_equal(cuda, src, dst, mask, labels, n, offsets=(0, 0, 0)):
+    """The Borůvka op, the kernel without its table and the first kernel on
+    ``src``/``dst``/``mask`` at the given offsets, each bit for bit against
+    the plain version on the CPU."""
+    want = boruvka_round_ref(src, dst, mask, labels, n)
+    args = [_at_offset(t, k, cuda) for t, k in zip((src, dst, mask), offsets)]
+    args += [labels.to(cuda), n]
+    reset_launch_counts()
+    got = boruvka_round(*args)
+    assert launch_counts()["boruvka_round"] == (1 if src.numel() else 0)
+    assert torch.equal(got.cpu(), want)
+    for fn in (boruvka_round_without_table, previous_boruvka_round):
+        assert torch.equal(fn(*args).cpu(), want), fn.__name__
+    return want
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                     (1, 2, 3)])
+@pytest.mark.parametrize("e", [1, 3, 33, 1027, (1 << 20) + 5])
+def test_boruvka_round_warp_kernel_on_sorted_slots(cuda, e, offsets):
+    """The redesigned round on slots sorted by their smaller endpoint, with
+    identity labels and with 1, 2 and 3 components, the buffers as views at
+    offsets that move them off 16-byte alignment (the same offset on all
+    three keeps one scalar head; different offsets leave no 16-byte part)."""
+    n = max(8, min(e, 1 << 16))
+    src, dst, mask = _sorted_buffer(e, n, seed=e)
+    label_sets = [torch.arange(n, dtype=torch.int32)]
+    label_sets += [_few_components(n, k, seed=e + k) for k in (1, 2, 3)]
+    for labels in label_sets:
+        want = _rounds_equal(cuda, src, dst, mask, labels, n, offsets)
+        if torch.unique(labels).numel() == 1:
+            assert (want == INF32).all()
+
+
+def test_boruvka_round_warp_kernel_odd_ids_in_one_warp(cuda):
+    """Negative endpoints (wrapped), endpoints past n (clamped), negative
+    labels and labels past num_segments (dropped) inside the lanes of one
+    warp step, all sharing one smaller endpoint, at every head offset."""
+    n, e = 64, 4 * 128 + 7
+    rng = np.random.default_rng(21)
+    src = np.full(e, 5, np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    dst[::7] = rng.integers(-2 * n, -1, dst[::7].shape[0])
+    dst[3::11] = rng.integers(n, 3 * n, dst[3::11].shape[0])
+    src[::5] = 5 - n  # wraps to 5
+    mask = rng.random(e) >= 0.1
+    labels = rng.integers(0, 3, n).astype(np.int32) * 7
+    labels[::9] = -4
+    labels[4::9] = 40
+    t = torch.as_tensor
+    for num_segments in (n, 30):
+        for k in range(4):
+            _rounds_equal(cuda, t(src), t(dst), t(mask), t(labels),
+                          num_segments, (k, k, k))
 
 
 def _frontier_equal(cuda, src, dst, mask, frontier, visited, n):
@@ -277,6 +372,50 @@ def test_embedding_bag_kernel_ids_and_nan(cuda, mode):
     mask[1, 0] = True
     got = _bag_equal(cuda, table, idx, mask, mode, 1e-5)
     assert np.isnan(got[1, 3]) and np.isfinite(got[1, :3]).all()
+
+
+#: bag counts around the threshold between the two embedding_bag kernels
+#: (at D <= 64 a bag is one work item)
+BAGS = {"one": 1, "below": BLOCK_ITEMS_MAX - 1, "at": BLOCK_ITEMS_MAX,
+        "above": BLOCK_ITEMS_MAX + 1}
+
+
+def _same_floats(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+@pytest.mark.parametrize("l", [1, 9, 50, 300])
+@pytest.mark.parametrize("bags", list(BAGS))
+def test_embedding_bag_either_kernel_equals_plain(cuda, bags, l, mode):
+    """The op on either side of BLOCK_ITEMS_MAX: bit for bit the block
+    kernel up to it and the first kernel above it, both within 1e-5 of the
+    plain version (3e-2 with a bf16 table), with an all-masked bag, a NaN
+    row, wrapped negative ids and ids outside [-V, V). A float32 sum's
+    rounding grows with the square root of its length, so ``sum`` over
+    bags longer than the 50 of the other tests takes 1e-5 * sqrt(L / 50)."""
+    b, v, d = BAGS[bags], 3000, 50
+    f32_tol = 1e-5 * (max(1.0, l / 50) ** 0.5 if mode == "sum" else 1.0)
+    table, idx, mask = _bag_inputs(b, l, v, d, seed=b + l)
+    mask[0] = True
+    table[7, 3] = float("nan")
+    idx[0, 0] = 7  # a NaN row, valid
+    if b > 1:
+        mask[-1] = False  # an all-masked bag
+        idx[1, -1] = v + 7  # outside [-V, V): a NaN row
+        idx[b // 2, 0] = -v  # wraps to row 0
+    chosen = block_embedding_bag if b <= BLOCK_ITEMS_MAX else \
+        previous_embedding_bag
+    for tab, tol in ((table, f32_tol), (table.to(torch.bfloat16), 3e-2)):
+        args = [x.to(cuda) for x in (tab, idx, mask)]
+        got = _bag_equal(cuda, tab, idx, mask, mode, tol)
+        _same_floats(embedding_bag(*args, mode),
+                     chosen(*args, mode))
+        for fn in (block_embedding_bag, previous_embedding_bag):
+            np.testing.assert_allclose(fn(*args, mode).float().cpu().numpy(),
+                                       got, atol=tol, rtol=tol)
+    if b == 1:  # the one bag all masked
+        _bag_equal(cuda, table, idx, torch.zeros_like(mask), mode, 1e-5)
 
 
 # ------------------------------------------------------------ flash attention

@@ -31,6 +31,8 @@ from repro.kernels.embedding_bag.kernel import embedding_bag_pallas
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as j_bag_ref
 from repro.kernels.segment_min.kernel import segment_min_pallas
 from repro.kernels.segment_min.ref import segment_min_ref as j_segment_min_ref
+from repro_torch.core.api import pad_graph
+from repro_torch.core.forest import hook_round
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.boruvka_round import (
     EDGE_SLOT_BYTES,
@@ -264,6 +266,26 @@ def test_boruvka_round_wraps_negative_ids_as_jax():
             assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("labels", ["identity", "round2"])
+def test_boruvka_round_on_the_sorted_planted_buffer(labels):
+    """The round as the bridge pipeline runs it: a planted-bridge buffer in
+    its generator's order (slots sorted by their smaller endpoint, padding
+    after), every live non-loop slot valid, with the first round's identity
+    labels and the labels after one hooking round (a few components)."""
+    s, d, _ = gen.planted_bridge_graph(300, 1800, 3, seed=2)
+    key = np.minimum(s, d).astype(np.int64) * 300 + np.maximum(s, d)
+    assert (np.diff(key) > 0).all()  # the generator's order
+    el = pad_graph(s, d, 300, device="cpu")
+    n = el.n_nodes
+    valid = el.mask & (el.src != el.dst)
+    lab = torch.arange(n, dtype=torch.int32)
+    if labels == "round2":
+        lab = hook_round(el.src, el.dst, valid, lab, n)[0]
+        assert 1 < torch.unique(lab[:300]).numel() < 300
+    _boruvka_case(el.src.numpy(), el.dst.numpy(), valid.numpy(), lab.numpy(),
+                  n)
+
+
 # ------------------------------------------------------------ frontier round
 def _frontier_case(src, dst, mask, frontier, visited, n, pallas=True):
     """The port's plain version and op against the JAX oracle and, where
@@ -399,6 +421,17 @@ def test_embedding_bag_matches_jax(mode, b, l, v, d):
     idx = rng.integers(0, v, (b, l)).astype(np.int32)
     mask = rng.random((b, l)) > 0.3
     _bag_case(table, idx, mask, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_embedding_bag_one_bag_of_the_retrieval_step(mode):
+    """SASRec's retrieval shape: one right-aligned history of 50 with its
+    padding masked, D 50, the shape the one-bag branch takes on the card."""
+    rng = np.random.default_rng(50)
+    table = rng.normal(size=(4096, 50)).astype(np.float32)
+    idx = np.zeros((1, 50), np.int32)
+    idx[0, 16:] = rng.integers(1, 4096, 34)
+    _bag_case(table, idx, idx != 0, mode)
 
 
 @pytest.mark.parametrize("mode", MODES)
