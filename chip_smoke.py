@@ -15,7 +15,13 @@ Phases, one JSON line each:
              The Borůvka round at both label sets (identity, round 2) also
              through the first kernel (``previous_kernel_ms``) and without
              its per-block table, both held bit for bit too, and the
-             updates each design asks of ``best``.
+             updates each design asks of ``best``. The frontier round on
+             every round of one SFS pass, through the redesigned kernel
+             and the first one, bit for bit, both timed in turns at four
+             picked rounds and over the pass. ``segment_min`` through the
+             op (one cooperative launch), the same body after a separate
+             fill and the first kernel, each split under the profiler into
+             fill, gap and body.
 3. main    — ``repro_torch.find_bridges`` on the paper's Fig. 2 operating
              point (|V| = 100,000, |E| = 10,000,000, six planted bridges)
              with ``final="device"`` and ``final="host"``, each twice (cold,
@@ -31,10 +37,12 @@ Phases, one JSON line each:
              answer held against the planted truth; then each of those
              pipelines stage by stage (wall seconds per stage, rounds per
              certificate pass) and ``cuts`` with either final under
-             torch.profiler; then the summed device time of the Borůvka
-             round's launches in one ``find_bridges(final="device")`` and
-             one ``analyze(kind="cuts", final="host")``, with the
-             redesigned kernel and with the first one in its place.
+             torch.profiler; then the summed device time of a redesigned
+             kernel's launches over one warm call, with the redesigned
+             kernel and with the first one in its place: the Borůvka round
+             in ``find_bridges(final="device")`` and in
+             ``analyze(kind="cuts", final="host")``, the frontier round in
+             the latter, ``segment_min`` in the former.
 5. check   — small worlds on the card against the host oracles and the
              planted truth, every kind and final; the pipeline of every
              (kind, final, certificate) the registry allows on the card
@@ -121,6 +129,7 @@ from repro_torch.kernels.boruvka_round.kernel import (
     PACKED_INF,
     boruvka_round_without_table,
     previous_boruvka_round,
+    previous_frontier_round,
 )
 from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
@@ -154,6 +163,11 @@ from repro_torch.kernels.flash_attention.kernel import (
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import kernel_path, segment_min
+from repro_torch.kernels.segment_min import ops as segment_min_ops
+from repro_torch.kernels.segment_min.kernel import (
+    filled_segment_min,
+    previous_segment_min,
+)
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.models.recsys import init_sasrec, sasrec_hidden
 from repro_torch.training.steps import make_recsys_steps
@@ -201,6 +215,26 @@ LAUNCHES_FROM = {"boruvka_round": "find_bridges(final='device')",
                  "embedding_bag": "retrieval",
                  "flash_attention_mma": "flash_attention(prefill)",
                  "flash_attention_tf32x3": "flash_attention(prefill_f32)"}
+
+
+#: the op module and wrapper of each kernel whose first kernel the path
+#: phase swaps in, that first kernel, and the runs whose device time of it
+#: the phase sums
+PATH_SWAPS = {
+    "boruvka_round": (boruvka_ops, "boruvka_round_cuda",
+                      previous_boruvka_round,
+                      ("find_bridges(final='device')",
+                       "analyze(kind='cuts', final='host')")),
+    "frontier_round": (boruvka_ops, "frontier_round_cuda",
+                       previous_frontier_round,
+                       ("analyze(kind='cuts', final='host')",)),
+    "segment_min": (segment_min_ops, "segment_min_cuda",
+                    previous_segment_min,
+                    ("find_bridges(final='device')",)),
+}
+#: kernels an op launches beside its own, summed with it in the profile:
+#: the first frontier kernel's split into best_p and best_e
+EVENTS_BESIDE = {"frontier_round": ("unpack_pairs",)}
 
 
 def emit(obj) -> None:
@@ -342,9 +376,62 @@ def phase_kernels(el, flush) -> dict:
                  previous_kernel_ms=b_rec["previous_kernel_ms_identity"],
                  components_round2=int(torch.unique(round2).numel()))
 
-    # segment_min at the device final's shapes: one key per arc of the
-    # certificate's Euler tour (2 * 2(n-1) arcs), one segment per vertex;
-    # INF32 keys and out-of-range ids included
+    s_rec = check_segment_min(el, flush)
+    f_rec = check_frontier_round(el, valid, n_valid, flush)
+    for rec in (b_rec, s_rec, f_rec):
+        emit({"phase": "kernel_check", **rec})
+    return {"boruvka_round": b_rec, "segment_min": s_rec,
+            "frontier_round": f_rec}
+
+
+def launch_split(name: str, call, waited: bool, calls: int = 20) -> dict:
+    """The device timeline of ``calls`` calls of ``call()`` under
+    torch.profiler, each call after a device-side wait (``WAIT_CYCLES``)
+    when ``waited``, so that the host has queued the whole call before the
+    card reaches it: per launch of the kernel whose name holds ``name``,
+    the PyTorch fill just before it (0 where the kernel follows the wait),
+    the gap between the two and the kernel's own time; medians in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if waited:
+                torch.cuda._sleep(WAIT_CYCLES)
+            call()
+        sync()
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    parts = {"fill_ms": [], "gap_ms": [], "body_ms": [], "total_ms": []}
+    for (a0, a1, before), (b0, b1, kernel) in zip([(0, 0, "")] + spans,
+                                                  spans):
+        if name not in kernel:
+            continue
+        fill = "fill" in before.lower()
+        parts["fill_ms"].append((a1 - a0) / 1e3 if fill else 0.0)
+        parts["gap_ms"].append((b0 - a1) / 1e3 if fill else 0.0)
+        parts["body_ms"].append((b1 - b0) / 1e3)
+        parts["total_ms"].append((b1 - (a0 if fill else b0)) / 1e3)
+    if len(parts["body_ms"]) != calls:
+        raise AssertionError(f"{name}: {len(parts['body_ms'])} of {calls} "
+                             f"launches found in the profile")
+    return {key: statistics.median(v) for key, v in parts.items()}
+
+
+def check_segment_min(el, flush) -> dict:
+    """``segment_min`` at the device final's shapes: one key per arc of
+    the certificate's Euler tour (2 * 2(n-1) arcs), one segment per
+    vertex; INF32 keys and out-of-range ids included. The op (one
+    cooperative launch), the same body after PyTorch's fill
+    (``filled_segment_min``) and the first kernel after that fill
+    (``previous_segment_min``), each bit for bit against the plain version
+    and timed in turns; then each split under the profiler into the fill,
+    the gap and the body, with the host's dispatch queued ahead of the card
+    (``waited``) and not."""
+    n = el.n_nodes
     a = 2 * certificate_capacity(n)
     gen_ = torch.Generator(device=el.device).manual_seed(SEED)
     keys = torch.randperm(a, generator=gen_, device=el.device).to(INT)
@@ -354,33 +441,39 @@ def phase_kernels(el, flush) -> dict:
     ids[:4] = torch.tensor([-(2 ** 31), -1, n, INF32], dtype=INT)
     n_live = int((keys != INF32).sum())
     s_bytes = 4 * a + 4 * n_live + 4 * n
-    err = require_equal("segment_min", segment_min(keys, ids, n),
-                        segment_min_ref(keys, ids, n))
+    want = segment_min_ref(keys, ids, n)
+    err = require_equal("segment_min", segment_min(keys, ids, n), want)
+    variants = {"ms": lambda: segment_min(keys, ids, n),
+                "filled_first_ms": lambda: filled_segment_min(keys, ids, n),
+                "previous_kernel_ms": lambda: previous_segment_min(keys, ids,
+                                                                   n)}
+    for key in ("filled_first_ms", "previous_kernel_ms"):
+        require_equal(f"segment_min[{key}]", variants[key](), want)
     idx64 = torch.where((ids >= 0) & (ids < n), ids, n).long()
 
     def library():
         out = torch.full((n + 1,), INF32, dtype=INT, device=el.device)
         return out.scatter_reduce_(0, idx64, keys, "amin", include_self=True)
 
-    require_equal("segment_min[library]", segment_min(keys, ids, n),
-                  library()[:n])
-    s_rec = {"name": "segment_min", "route": "cuda",
-             "path": kernel_path(el.device), "source": SOURCE,
-             "replaces": "src/repro/kernels/segment_min/kernel.py:76",
-             "shape": {"E": a, "n": n, "live_keys": n_live},
-             "max_abs_err": err,
-             "ms": time_ms(lambda: segment_min(keys, ids, n), flush),
-             "plain_ms": time_ms(lambda: segment_min_ref(keys, ids, n), flush),
-             "library_ms": time_ms(library, flush),
-             "library_note": "Tensor.scatter_reduce_(amin) on ids already "
-                             "mapped to a dump slot (that mapping untimed)",
-             "bound_ms": s_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-             "bound_bytes": s_bytes}
-    f_rec = check_frontier_round(el, valid, n_valid, flush)
-    for rec in (b_rec, s_rec, f_rec):
-        emit({"phase": "kernel_check", **rec})
-    return {"boruvka_round": b_rec, "segment_min": s_rec,
-            "frontier_round": f_rec}
+    require_equal("segment_min[library]", want, library()[:n])
+    rec = {"name": "segment_min", "route": "cuda",
+           "path": kernel_path(el.device), "source": SOURCE,
+           "replaces": "src/repro/kernels/segment_min/kernel.py:76",
+           "shape": {"E": a, "n": n, "live_keys": n_live},
+           "max_abs_err": err, **time_turns(variants, flush),
+           "plain_ms": time_ms(lambda: segment_min_ref(keys, ids, n), flush),
+           "library_ms": time_ms(library, flush),
+           "library_note": "Tensor.scatter_reduce_(amin) on ids already "
+                           "mapped to a dump slot (that mapping untimed)",
+           "bound_ms": s_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bound_bytes": s_bytes}
+    labels = {"ms": "op", "filled_first_ms": "filled_first",
+              "previous_kernel_ms": "previous_kernel"}
+    rec["split"] = {f"{labels[key]}{'' if waited else '_unwaited'}":
+                    launch_split("segment_min", fn, waited)
+                    for key, fn in variants.items()
+                    for waited in (True, False)}
+    return rec
 
 
 def sfs_rounds_plain(el) -> list:
@@ -401,17 +494,22 @@ def sfs_rounds_plain(el) -> list:
 
 def check_frontier_round(el, valid, n_valid: int, flush) -> dict:
     """``frontier_round`` at the main path's shapes on the frontier and
-    visited sets of real BFS rounds, bit for bit against its plain version;
-    kernel, plain and library times. The rounds: the first (its frontier
-    is every root, the isolated padding vertices included), the widest
-    frontier after it, and the round that reaches the most vertices (the
-    most atomics). Also the kernel's mean time per launch over the pass."""
+    visited sets of every round of one SFS pass, bit for bit against its
+    plain version, through the redesigned kernel (the op) and through the
+    first one (``previous_frontier_round``); the library call held too at
+    the picked rounds. The picked rounds: the first (its frontier is every
+    root, the isolated padding vertices included), the widest frontier
+    after it, the thinnest after it and the round that reaches the most
+    vertices (the most atomics). There both kernels are timed in turns
+    (``previous_kernel_ms_*``) beside the plain version and the library
+    call; over the whole pass each kernel's time per launch too."""
     n, e = el.n_nodes, el.capacity
     rounds = sfs_rounds_plain(el)
     sizes = [int(f.sum()) for f, _ in rounds]
+    later = range(1, len(rounds) - 1) or range(1)
     picks = {"first": 0,
-             "widest": max(range(1, len(rounds)) or range(1),
-                           key=sizes.__getitem__),
+             "widest": max(later, key=sizes.__getitem__),
+             "thin": min(later, key=sizes.__getitem__),
              "most_reached": max(range(len(rounds) - 1) or range(1),
                                  key=lambda i: sizes[i + 1])}
     f_bytes = frontier_round_bytes(e, n, n_valid)
@@ -427,6 +525,14 @@ def check_frontier_round(el, valid, n_valid: int, flush) -> dict:
                            "ids already mapped to a dump slot; the "
                            "candidate-mask pass that makes them is untimed"}
     errs = []
+    for i, (frontier, visited) in enumerate(rounds):
+        args = (el.src, el.dst, valid, frontier, visited, n)
+        want = frontier_round_ref(*args)
+        for name, fn in (("", frontier_round),
+                         ("[previous_kernel]", previous_frontier_round)):
+            errs += [require_equal(f"frontier_round[{i}]{name}.{part}", a, b)
+                     for part, a, b in zip(("best_p", "best_e"), fn(*args),
+                                           want)]
     arange = torch.arange(e, dtype=torch.int64, device=el.device)
     us = torch.cat([el.src, el.dst]).long()
     ws = torch.cat([el.dst, el.src])
@@ -435,9 +541,7 @@ def check_frontier_round(el, valid, n_valid: int, flush) -> dict:
     for tag, i in picks.items():
         frontier, visited = rounds[i]
         args = (el.src, el.dst, valid, frontier, visited, n)
-        got, want = frontier_round(*args), frontier_round_ref(*args)
-        errs += [require_equal(f"frontier_round[{tag}].{part}", a, b)
-                 for part, a, b in zip(("best_p", "best_e"), got, want)]
+        got = frontier_round(*args)
         cand = v2 & frontier[us] & ~visited[ws.long()]
         keys = us * (1 << 32) + slots
         idx = torch.where(cand, ws, n).long()
@@ -455,14 +559,28 @@ def check_frontier_round(el, valid, n_valid: int, flush) -> dict:
                       (packed & 0xFFFFFFFF).to(INT))
         rec[f"round_{tag}"] = i
         rec[f"reached_{tag}"] = int((got[0] < INF32).sum())
-        rec[f"ms_{tag}"] = time_ms(lambda: frontier_round(*args), flush)
+        turns = time_turns(
+            {"ms": lambda: frontier_round(*args),
+             "previous_kernel_ms": lambda: previous_frontier_round(*args)},
+            flush)
+        rec.update({f"{key}_{tag}": ms for key, ms in turns.items()})
         rec[f"plain_ms_{tag}"] = time_ms(lambda: frontier_round_ref(*args),
                                          flush, iters=5)
         rec[f"library_ms_{tag}"] = time_ms(library, flush)
-    pass_ms = [time_ms(lambda: frontier_round(el.src, el.dst, valid, f, v, n),
-                       flush, iters=5, warmup=1) for f, v in rounds]
-    rec.update(ms_pass_mean=statistics.fmean(pass_ms), ms_pass=pass_ms,
-               max_abs_err=max(errs), ms=rec["ms_widest"],
+    pass_ms = {"ms_pass": [], "previous_kernel_ms_pass": []}
+    for f, v in rounds:
+        args = (el.src, el.dst, valid, f, v, n)
+        turns = time_turns(
+            {"ms_pass": lambda: frontier_round(*args),
+             "previous_kernel_ms_pass": lambda: previous_frontier_round(
+                 *args)}, flush, iters=5, warmup=1)
+        for key, ms in turns.items():
+            pass_ms[key].append(ms)
+    for key, times in pass_ms.items():
+        rec[f"{key}_mean"] = statistics.fmean(times)
+        rec[key] = times
+    rec.update(max_abs_err=max(errs), ms=rec["ms_widest"],
+               previous_kernel_ms=rec["previous_kernel_ms_widest"],
                plain_ms=rec["plain_ms_widest"],
                library_ms=rec["library_ms_widest"])
     return rec
@@ -527,17 +645,23 @@ def phase_profile(label: str, call, check) -> dict:
         rec[1] += b - a
     busy_s = _busy_us([(a, b) for _, a, b in spans]) / 1e6 if spans else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    # the port's kernels, each summed over every event whose name holds its
-    # own (frontier_round's split kernel unpack_pairs_kernel not included)
-    ours = {kernel: {"count": sum(c for n, (c, _) in by_name.items()
-                                  if kernel in n),
-                     "us": sum(t for n, (_, t) in by_name.items()
-                               if kernel in n)}
+
+    def summed(parts) -> dict:
+        """Launches of the events whose name holds ``parts[0]``, and the
+        time of those whose name holds any of ``parts``."""
+        return {"count": sum(c for n, (c, _) in by_name.items()
+                             if parts[0] in n),
+                "us": sum(t for n, (_, t) in by_name.items()
+                          if any(part in n for part in parts))}
+
+    # the port's kernels, each with the kernels its op launches beside it
+    ours = {kernel: summed((kernel,) + EVENTS_BESIDE.get(kernel, ()))
             for kernel in launch_counts()}
     rec = {"phase": "profile", "run": label, "wall_s": wall,
            "device_events": len(spans), "device_busy_s": busy_s,
            "idle_share": None if busy_s is None else 1 - busy_s / wall,
            "ours": {k: v for k, v in ours.items() if v["count"]},
+           "fills": summed(("Fill",)),
            "by_kernel": [{"name": n[:100], "count": c, "us": t}
                          for n, (c, t) in top]}
     emit(rec)
@@ -545,45 +669,56 @@ def phase_profile(label: str, call, check) -> dict:
 
 
 @contextlib.contextmanager
-def previous_boruvka_round_on_path():
-    """The Borůvka op's kernel swapped for the first one for the block's
-    duration: the same-run "before" of the path's Borůvka device time."""
-    saved = boruvka_ops.boruvka_round_cuda
-    boruvka_ops.boruvka_round_cuda = previous_boruvka_round
+def first_kernel_on_path(kernel: str):
+    """``kernel``'s op with its wrapper swapped for the first kernel's for
+    the block's duration: the same-run "before" of the path's device time
+    of that kernel."""
+    module, attr, first, _ = PATH_SWAPS[kernel]
+    saved = getattr(module, attr)
+    setattr(module, attr, first)
     try:
         yield
     finally:
-        boruvka_ops.boruvka_round_cuda = saved
+        setattr(module, attr, saved)
 
 
-def phase_boruvka_path(src, dst, planted, truth) -> dict:
-    """The summed device time of every Borůvka round launch in one warm
-    ``find_bridges(final="device")`` and one warm ``analyze(kind="cuts",
-    final="host")``, from torch.profiler: with the redesigned kernel, with
-    the first one in its place, and again with the redesigned one."""
+def phase_kernel_paths(src, dst, planted, truth) -> dict:
+    """For each kernel of ``PATH_SWAPS``, the summed device time of its
+    launches (and of the kernels its op launches beside it) in one warm
+    call of each run it names, from torch.profiler: with the redesigned
+    kernel, with the first one in its place, and again with the
+    redesigned one; with every PyTorch fill of the call beside it (the
+    first ``segment_min`` op fills ``out`` in a launch of its own). One
+    line per kernel, ``<kernel>_path``."""
     calls = {"find_bridges(final='device')":
              (lambda: find_bridges(src, dst, N_NODES, final="device"),
               lambda got: got == planted),
              run_label("cuts", "host", None):
              (lambda: analyze(src, dst, N_NODES, kind="cuts", final="host"),
               lambda got: got == truth["cuts"])}
-    rec = {"phase": "boruvka_round_path"}
-    for label, (call, check) in calls.items():
-        runs = []
-        for kernel in ("redesign", "previous", "redesign"):
-            with (previous_boruvka_round_on_path() if kernel == "previous"
-                  else contextlib.nullcontext()):
-                prof = phase_profile(f"{label} [{kernel} boruvka_round]",
-                                     call, check)
-            runs.append({"kernel": kernel,
-                         **prof["ours"].get("boruvka_round",
-                                            {"count": 0, "us": 0.0})})
-        if len({run["count"] for run in runs}) != 1 or not runs[0]["count"]:
-            raise AssertionError(f"{label}: Borůvka launches differ between "
-                                 f"kernels: {runs}")
-        rec[label] = runs
-    emit(rec)
-    return rec
+    out = {}
+    for kernel, (_, _, _, labels) in PATH_SWAPS.items():
+        rec = {"phase": f"{kernel}_path"}
+        for label in labels:
+            call, check = calls[label]
+            runs = []
+            for which in ("redesign", "previous", "redesign"):
+                with (first_kernel_on_path(kernel) if which == "previous"
+                      else contextlib.nullcontext()):
+                    prof = phase_profile(f"{label} [{which} {kernel}]",
+                                         call, check)
+                runs.append({"kernel": which,
+                             **prof["ours"].get(kernel,
+                                                {"count": 0, "us": 0.0}),
+                             "fills": prof["fills"]})
+            if len({run["count"] for run in runs}) != 1 or not runs[0][
+                    "count"]:
+                raise AssertionError(f"{label}: {kernel} launches differ "
+                                     f"between kernels: {runs}")
+            rec[label] = runs
+        emit(rec)
+        out[kernel] = rec
+    return out
 
 
 def planted_truth(n: int, n_bridges: int, planted: set) -> dict:
@@ -1223,7 +1358,7 @@ def main() -> int:
                       lambda: analyze(src, dst, N_NODES, kind=kind,
                                       final=final),
                       lambda got: got == truth[kind])
-    phase_boruvka_path(src, dst, planted, truth)
+    phase_kernel_paths(src, dst, planted, truth)
     phase_check()
 
     # the plain versions' float32 products run in full float32

@@ -18,13 +18,20 @@ the first kernel of the port (``boruvka_round_kernel``, one thread per
 slot), which no op reaches: the yardstick.
 
 ``frontier_round_cuda`` replaces ``frontier_round_pallas`` of the same file
-(body ``_frontier_round_kernel``). ``frontier_round_kernel`` makes the same
-one pass; for each orientation u -> w of a live slot with ``frontier[u]``
-and not ``visited[w]`` it ``atomicMin``-s the packed key ``u * 2^32 + slot``
-into an int64[num_segments] buffer, whose minimum is the lexicographic
-(parent, slot) pair; ``unpack_pairs_kernel`` splits it into ``best_p`` and
-``best_e``. Bound by bytes: the 9 B edge slot once, 1 B each of
-``frontier`` and ``visited`` per vertex, 8 B per output pair.
+(body ``_frontier_round_kernel``). ``frontier_round_warp_kernel`` walks the
+buffer on the Borůvka round's layout (a persistent grid in slot order, four
+slots per thread, 16-byte loads of ``src`` and ``dst``, none for four
+masked slots); for each orientation u -> w of a live slot with
+``frontier[u]`` and not ``visited[w]`` it ``atomicMin``-s the packed key
+``u * 2^32 + slot`` into an int64[num_segments] buffer, whose minimum is the
+lexicographic (parent, slot) pair. ``best_p`` and ``best_e`` are that
+buffer's high and low int32 words (``split_packed``), with no launch of
+their own. Bound by bytes: the 9 B edge slot once, 1 B each of
+``frontier`` and ``visited`` per vertex, 8 B per output pair; the loads of
+the slots hold it above that (``tools/profile_frontier_round.py``).
+``previous_frontier_round`` launches the first kernel of the port
+(``frontier_round_kernel``, one thread per slot, and its split kernel
+``unpack_pairs_kernel``), which no op reaches: the yardstick.
 """
 from __future__ import annotations
 
@@ -77,24 +84,61 @@ def previous_boruvka_round(src, dst, mask, labels, num_segments: int):
                          num_segments)[0]
 
 
+def split_packed(packed: torch.Tensor) -> tuple:
+    """``(best_p, best_e)`` of a packed int64 buffer of keys ``p * 2^32 +
+    e``: the high and low int32 words of each key, as views of it (the
+    little-endian layout of the card and of x86 hosts). ``PACKED_INF``
+    splits into ``INF32, INF32``."""
+    words = packed.view(INT)
+    return words[1::2], words[0::2]
+
+
+def _packed_launch(entry: str, src, dst, mask, frontier, visited,
+                   num_segments: int, *outputs):
+    """The packed int64 buffer of one frontier round by C entry ``entry``,
+    filled with ``PACKED_INF`` and then launched on validated CUDA tensors
+    with at least one slot and one segment; ``outputs`` are more pointers
+    the entry takes after it."""
+    packed = torch.full((num_segments,), PACKED_INF, dtype=torch.int64,
+                        device=src.device)
+    cuda_lib.launch(entry, src.device, src.data_ptr(), dst.data_ptr(),
+                    mask.data_ptr(), frontier.data_ptr(), visited.data_ptr(),
+                    packed.data_ptr(), *outputs, src.numel(),
+                    frontier.numel(), num_segments)
+    return packed
+
+
+def _no_round(src, num_segments: int) -> tuple:
+    """``(best_p, best_e)`` of a round with no slot or no segment."""
+    none = torch.full((num_segments,), INF32, dtype=INT, device=src.device)
+    return none, none.clone()
+
+
 def frontier_round_cuda(src, dst, mask, frontier, visited, num_segments: int):
     """Launch the kernel on CUDA tensors validated by
-    ``ops.frontier_round``; returns ``(best_p, best_e)``."""
-    dev = src.device
-    e = src.numel()
-    if not (e and num_segments):
-        none = torch.full((num_segments,), INF32, dtype=INT, device=dev)
-        return none, none.clone()
-    packed = torch.full((num_segments,), PACKED_INF, dtype=torch.int64,
-                        device=dev)
-    best_p = torch.empty((num_segments,), dtype=INT, device=dev)
-    best_e = torch.empty((num_segments,), dtype=INT, device=dev)
-    cuda_lib.launch("repro_frontier_round", dev, src.data_ptr(),
-                    dst.data_ptr(), mask.data_ptr(), frontier.data_ptr(),
-                    visited.data_ptr(), packed.data_ptr(), best_p.data_ptr(),
-                    best_e.data_ptr(), e, frontier.numel(), num_segments)
+    ``ops.frontier_round``; returns ``(best_p, best_e)``, the two words of
+    the kernel's packed buffer (strided views)."""
+    if not (src.numel() and num_segments):
+        return _no_round(src, num_segments)
+    packed = _packed_launch("repro_frontier_round", src, dst, mask, frontier,
+                            visited, num_segments)
     frontier_round_cuda.launches += 1
-    return best_p, best_e
+    return split_packed(packed)
 
 
 frontier_round_cuda.launches = 0
+
+
+def previous_frontier_round(src, dst, mask, frontier, visited,
+                            num_segments: int):
+    """The first kernel (one thread per slot) and its split kernel, on
+    validated CUDA tensors: a yardstick outside every op, its launches not
+    counted. Returns contiguous ``(best_p, best_e)``."""
+    if not (src.numel() and num_segments):
+        return _no_round(src, num_segments)
+    best_p = torch.empty((num_segments,), dtype=INT, device=src.device)
+    best_e = torch.empty_like(best_p)
+    _packed_launch("repro_frontier_round_v1", src, dst, mask, frontier,
+                   visited, num_segments, best_p.data_ptr(),
+                   best_e.data_ptr())
+    return best_p, best_e

@@ -40,13 +40,21 @@ _SIGNATURES = {
     # src, dst, mask, labels, best, e, n_labels, num_segments, stream
     "repro_boruvka_round_v1": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_int, _P],
+    # src, dst, mask, frontier, visited, packed, e, n_nodes, num_segments,
+    # stream
+    "repro_frontier_round": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_int, _P],
     # src, dst, mask, frontier, visited, packed, best_p, best_e, e,
     # n_nodes, num_segments, stream
-    "repro_frontier_round": [_P, _P, _P, _P, _P, _P, _P, _P,
-                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                             _P],
+    "repro_frontier_round_v1": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, _P],
+    # keys, ids, out, e, num_segments, fill, stream
+    "repro_segment_min": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, _P],
     # keys, ids, out, e, num_segments, stream
-    "repro_segment_min": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    "repro_segment_min_v1": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                             _P],
     # table, idx, mask, out, n_bags, bag_len, n_rows, dim, mode, dtype,
     # block_items_max, stream
     "repro_embedding_bag": ([_P, _P, _P, _P] + [ctypes.c_int] * 6

@@ -1,10 +1,22 @@
 """Launch wrapper of the Hopper segment-min kernel.
 
 Replaces ``src/repro/kernels/segment_min/kernel.py::segment_min_pallas``.
-The CUDA kernel (``csrc/connectivity_rounds.cu::segment_min_kernel``) is
-one thread per key: skip ``INF32`` keys and out-of-range ids, else
-``atomicMin(&out[id], key)``. It is bound by bytes: 8 B per key read once
-plus 4 B per segment written.
+Its bytes (8 B a key read once, 4 B a segment written) take less time on
+the card than one launch at the pipeline's shapes. The first op was a
+PyTorch fill of ``out``, a gap, then its kernel; on an H100 the kernel's
+scattered reads and ``atomicMin``-s of ``out`` in L2 take most of the card's
+time, but where the host dispatches the second launch while the card waits
+(the pipeline's case) the gap is as long as the kernel. The CUDA kernel
+(``csrc/connectivity_rounds.cu::segment_min_vec_kernel``) is therefore one
+cooperative launch: it fills ``out`` with ``INF32``, waits at one
+grid-wide barrier, then reads four keys and four ids per thread with
+16-byte loads, skips ``INF32`` keys and out-of-range ids, and
+``atomicMin``-s each live key into ``out[id]`` after a read that skips
+keys no smaller. The scattered updates hold it above its byte bound.
+``filled_segment_min`` runs the same body after a fill by PyTorch (two
+launches: the alternative measured beside it), ``previous_segment_min``
+the first kernel (one thread per key, after the same fill); no op reaches
+either.
 """
 from __future__ import annotations
 
@@ -32,16 +44,45 @@ def check_key_space(e: int, num_segments: int) -> None:
             f"(limit {INF32 - SEG_BLOCK})")
 
 
+def _launch(entry: str, keys, ids, out, num_segments: int, *extra) -> None:
+    cuda_lib.launch(entry, keys.device, keys.data_ptr(), ids.data_ptr(),
+                    out.data_ptr(), keys.numel(), num_segments, *extra)
+
+
+def _filled(keys, num_segments: int) -> torch.Tensor:
+    return torch.full((num_segments,), INF32, dtype=INT, device=keys.device)
+
+
 def segment_min_cuda(keys: torch.Tensor, ids: torch.Tensor,
                      num_segments: int) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors validated by ``ops.segment_min``."""
-    out = torch.full((num_segments,), INF32, dtype=INT, device=keys.device)
-    e = keys.numel()
-    if e and num_segments:
-        cuda_lib.launch("repro_segment_min", keys.device, keys.data_ptr(),
-                        ids.data_ptr(), out.data_ptr(), e, num_segments)
-        segment_min_cuda.launches += 1
+    """Launch the kernel on CUDA tensors validated by ``ops.segment_min``:
+    one launch that fills ``out`` too."""
+    if not (keys.numel() and num_segments):
+        return _filled(keys, num_segments)
+    out = torch.empty((num_segments,), dtype=INT, device=keys.device)
+    _launch("repro_segment_min", keys, ids, out, num_segments, 1)
+    segment_min_cuda.launches += 1
     return out
 
 
 segment_min_cuda.launches = 0
+
+
+def filled_segment_min(keys, ids, num_segments: int) -> torch.Tensor:
+    """The same kernel's body after PyTorch's fill of ``out`` (two
+    launches), on validated CUDA tensors: a yardstick outside every op, its
+    launches not counted."""
+    out = _filled(keys, num_segments)
+    if keys.numel() and num_segments:
+        _launch("repro_segment_min", keys, ids, out, num_segments, 0)
+    return out
+
+
+def previous_segment_min(keys, ids, num_segments: int) -> torch.Tensor:
+    """The first kernel (one thread per key) after PyTorch's fill of
+    ``out``, on validated CUDA tensors: a yardstick outside every op, its
+    launches not counted."""
+    out = _filled(keys, num_segments)
+    if keys.numel() and num_segments:
+        _launch("repro_segment_min_v1", keys, ids, out, num_segments)
+    return out

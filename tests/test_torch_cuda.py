@@ -27,6 +27,7 @@ from repro_torch.kernels.boruvka_round import boruvka_round, frontier_round
 from repro_torch.kernels.boruvka_round.kernel import (
     boruvka_round_without_table,
     previous_boruvka_round,
+    previous_frontier_round,
 )
 from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
@@ -51,6 +52,10 @@ from repro_torch.kernels.flash_attention.kernel import (
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.segment_min import segment_min
+from repro_torch.kernels.segment_min.kernel import (
+    filled_segment_min,
+    previous_segment_min,
+)
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.models import recsys as rec
 from repro_torch.training.steps import make_recsys_steps
@@ -280,6 +285,160 @@ def test_frontier_round_kernel_edge_cases(cuda):
         t([True, False, True, True, False, False, False]), 7)
     assert p.tolist() == [INF32, 0, INF32, INF32, 3, INF32, INF32]
     assert e.tolist() == [INF32, 2, INF32, INF32, 5, INF32, INF32]
+
+
+def _frontier_rounds_equal(cuda, src, dst, mask, frontier, visited, n,
+                          offsets=(0, 0, 0)):
+    """The frontier op (the redesigned kernel) and the first kernel on
+    ``src``/``dst``/``mask`` at the given offsets, each bit for bit against
+    the plain version on the CPU; the op counts one launch."""
+    want = frontier_round_ref(src, dst, mask, frontier, visited, n)
+    args = [_at_offset(t, k, cuda) for t, k in zip((src, dst, mask), offsets)]
+    args += [frontier.to(cuda), visited.to(cuda), n]
+    reset_launch_counts()
+    got = frontier_round(*args)
+    assert launch_counts()["frontier_round"] == (1 if src.numel() else 0)
+    for fn, pair in (("op", got), ("previous", previous_frontier_round(*args))):
+        for a, b in zip(pair, want):
+            assert a.dtype == torch.int32, fn
+            assert torch.equal(a.cpu(), b), fn
+    return want
+
+
+def _frontier_sets(n, seed, p=0.2):
+    rng = np.random.default_rng(seed)
+    frontier = torch.as_tensor(rng.random(n) < p)
+    return frontier, torch.as_tensor(rng.random(n) < 0.3) | frontier
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                     (1, 2, 3)])
+@pytest.mark.parametrize("e", [1, 3, 33, 1027, (1 << 20) + 5])
+def test_frontier_round_warp_kernel_on_sorted_and_shuffled_slots(cuda, e,
+                                                                 offsets):
+    """The redesigned round on slots sorted by their smaller endpoint and on
+    the same slots shuffled, with a thin, a middle and a wide frontier, the
+    buffers as views at offsets that move them off 16-byte alignment."""
+    n = max(8, min(e, 1 << 16))
+    src, dst, mask = _sorted_buffer(e, n, seed=e + 1)
+    perm = torch.as_tensor(np.random.default_rng(e).permutation(e))
+    for order in (torch.arange(e), perm):
+        for p in (0.01, 0.2, 0.6):
+            frontier, visited = _frontier_sets(n, seed=e + int(100 * p), p=p)
+            _frontier_rounds_equal(cuda, src[order], dst[order], mask[order],
+                                   frontier, visited, n, offsets)
+
+
+def test_frontier_round_warp_kernel_masked_groups(cuda):
+    """Whole groups of four masked slots (whose endpoints the kernel never
+    reads) beside partly masked groups, at every head offset."""
+    e, n = 4 * 300 + 3, 97
+    src, dst, mask, _ = _edge_buffer(e, n, seed=31)
+    groups = np.random.default_rng(32).random(e // 4 + 1) < 0.5
+    mask = mask & torch.as_tensor(~np.repeat(groups, 4)[:e])
+    frontier, visited = _frontier_sets(n, seed=33, p=0.4)
+    for k in range(4):
+        _frontier_rounds_equal(cuda, src, dst, mask, frontier, visited, n,
+                               (k, k, k))
+
+
+def test_frontier_round_warp_kernel_odd_ids_in_one_warp(cuda):
+    """Negative endpoints (wrapped in gathers, dropped as targets),
+    endpoints past n (clamped, dropped) and targets past num_segments
+    (dropped) inside the lanes of one warp step, at every head offset."""
+    n, e = 64, 4 * 128 + 7
+    rng = np.random.default_rng(41)
+    src = np.full(e, 5, np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    dst[::7] = rng.integers(-2 * n, -1, dst[::7].shape[0])
+    dst[3::11] = rng.integers(n, 3 * n, dst[3::11].shape[0])
+    src[::5] = 5 - n  # wraps to 5
+    src[2::13] = rng.integers(-2 * n, 3 * n, src[2::13].shape[0])
+    mask = rng.random(e) >= 0.1
+    t = torch.as_tensor
+    for fr5 in (True, False):  # vertex 5 in the frontier, or a target
+        frontier, visited = _frontier_sets(n, seed=42, p=0.3)
+        frontier[5], visited[5] = fr5, fr5
+        for num_segments in (n, 30):
+            for k in range(4):
+                _frontier_rounds_equal(cuda, t(src), t(dst), t(mask),
+                                       frontier, visited, num_segments,
+                                       (k, k, k))
+
+
+def test_frontier_round_warp_kernel_tie_goes_to_the_lower_slot(cuda):
+    """Parallel edges to one unvisited vertex: the higher parent sits in
+    the earlier lanes, the lower parent in later lanes of the same and of
+    later warp steps; the minimum parent wins, then its lowest slot."""
+    n, e = 16, 3 * 128 + 5
+    src = np.full(e, 9, np.int32)  # parent 9: lanes before the lower parent
+    dst = np.full(e, 7, np.int32)  # vertex 7, unvisited
+    for slot in (6, 23, 130, 131, 260):  # lanes 1, 5; step 1; step 2
+        src[slot] = 2
+    src[e - 2:] = 3
+    dst[::17] = 11  # other targets mixed in
+    mask = np.ones(e, bool)
+    mask[6] = False  # the lowest copy from parent 2 is masked
+    frontier = torch.zeros(n, dtype=torch.bool)
+    frontier[[2, 3, 9]] = True
+    visited = frontier.clone()
+    t = torch.as_tensor
+    for k in range(4):
+        p, s = _frontier_rounds_equal(cuda, t(src), t(dst), t(mask),
+                                      frontier, visited, n, (k, k, k))
+        assert p[7] == 2 and s[7] == 23
+        assert p[11] == 9 and s[11] == 0
+
+
+def _segment_min_all_equal(cuda, keys, ids, n, offsets=(0, 0)):
+    """The segment-min op (the cooperative kernel), the same body after a
+    separate fill and the first kernel, with ``keys``/``ids`` at the given
+    offsets, each bit for bit against the plain version on the CPU; the op
+    counts one launch."""
+    want = segment_min_ref(keys, ids, n)
+    args = [_at_offset(t, k, cuda) for t, k in zip((keys, ids), offsets)]
+    reset_launch_counts()
+    got = segment_min(*args, n)
+    assert launch_counts()["segment_min"] == (1 if keys.numel() else 0)
+    assert torch.equal(got.cpu(), want)
+    for fn in (filled_segment_min, previous_segment_min):
+        assert torch.equal(fn(*args, n).cpu(), want), fn.__name__
+    return want
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 2)])
+@pytest.mark.parametrize("e", [1, 3, 33, 1027, (1 << 20) + 5])
+def test_segment_min_vec_kernel_sizes_and_offsets(cuda, e, offsets):
+    """INF32 keys and ids below 0, at n and past it, at every size, the
+    buffers as views that move them off 16-byte alignment (the same offset
+    keeps one scalar head; different offsets leave no 16-byte part)."""
+    n = max(4, min(e // 3, 1 << 17))
+    rng = np.random.default_rng(e + 7)
+    keys = rng.integers(-50, 1 << 20, e).astype(np.int32)
+    keys[rng.random(e) < 0.1] = INF32
+    ids = rng.integers(-10, n + 10, e).astype(np.int32)
+    ids[:4] = [np.iinfo(np.int32).min, INF32, n, -1][:e]
+    _segment_min_all_equal(cuda, torch.as_tensor(keys), torch.as_tensor(ids),
+                           n, offsets)
+
+
+def test_segment_min_vec_kernel_edge_cases(cuda):
+    """Every id in one segment, one segment, only INF32 keys, only
+    out-of-range ids, and more segments than keys."""
+    rng = np.random.default_rng(51)
+    e = 4096 + 3
+    keys = torch.as_tensor(rng.integers(0, 1 << 30, e).astype(np.int32))
+    same = torch.full((e,), 5, dtype=torch.int32)
+    for k in range(4):
+        _segment_min_all_equal(cuda, keys, same, 9, (k, k))
+        _segment_min_all_equal(cuda, keys, same - 5, 1, (k, k))
+    want = _segment_min_all_equal(cuda, torch.full((e,), INF32,
+                                                   dtype=torch.int32),
+                                  same, 9)
+    assert (want == INF32).all()
+    want = _segment_min_all_equal(cuda, keys, same + 100, 9)
+    assert (want == INF32).all()
+    _segment_min_all_equal(cuda, keys[:5], same[:5] - 3, 1 << 20)
 
 
 #: every (kind, certificate) the analysis registry allows

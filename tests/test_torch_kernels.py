@@ -42,6 +42,7 @@ from repro_torch.kernels.boruvka_round import (
     frontier_round_bytes,
     kernel_path,
 )
+from repro_torch.kernels.boruvka_round.kernel import PACKED_INF, split_packed
 from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
@@ -362,6 +363,30 @@ def test_frontier_round_edge_cases():
     for fr, m in ((np.zeros(n, bool), mask), (frontier, np.zeros(6, bool))):
         p, e = _frontier_case(src, dst, m, fr, visited, n)
         assert (p == INF32).all() and (e == INF32).all()
+
+
+@pytest.mark.parametrize("n,odd_ids", [(30, True), (512, True),
+                                       (513, False)])
+def test_split_packed_gives_back_the_pair(n, odd_ids):
+    """The frontier kernel's packed keys ``best_p * 2^32 + best_e`` split
+    back into the plain version's two int32 tensors (negative parents from
+    wrapped ids and the INF32 pair included), as the card's op reads
+    them."""
+    rng = np.random.default_rng(n)
+    src, dst, mask = _edge_buffer(1500, n, seed=n + 5)
+    if odd_ids:
+        src, dst = _out_of_range(src, dst, n, seed=n + 6)
+    frontier = rng.random(n) < 0.4
+    visited = (rng.random(n) < 0.5) | frontier
+    best_p, best_e = frontier_round_ref(
+        *map(_t, (src, dst, mask, frontier, visited)), n)
+    assert (best_p == INF32).any() and (best_p < INF32).any()
+    packed = (best_p.long() << 32) | (best_e.long() & 0xFFFFFFFF)
+    assert (packed[best_p == INF32] == PACKED_INF).all()
+    got_p, got_e = split_packed(packed)
+    for got, want in ((got_p, best_p), (got_e, best_e)):
+        assert got.dtype == torch.int32
+        assert torch.equal(got, want)
 
 
 def test_frontier_round_validates_inputs_and_key_space():
