@@ -47,6 +47,30 @@ Phases, one JSON line each:
              planted truth, every kind and final; the pipeline of every
              (kind, final, certificate) the registry allows on the card
              against the same pipeline on the CPU, buffer for buffer.
+5b. distributed — the paper's merge across machines at the same point:
+             the graph partitioned with seed 0 into M = 8 shard rows of
+             2^21 slots, stacked [8, 2^21] on the card; the host
+             simulator (``certify_shards`` then ``simulate_merge_host``,
+             every certificate built on the card) for ``paper``, ``xor``
+             and ``hierarchical`` (2 x 4) x ``bridges`` (``2ec``) and
+             ``cuts`` (``sfs``), once cold then three times warm with the
+             launch counts set to 0 just before each run and read just
+             after: the median warm run's wall, local certificates' and
+             each ``merge/level{q}`` span's seconds, launches, host syncs
+             in round loops, peak device bytes; machine 0's answer (and
+             machine 7's under ``xor``/``hierarchical``) with both finals
+             against the planted truth. Then one warm ``paper``/
+             ``bridges`` merge under torch.profiler; the same split for
+             ``paper``/``bridges`` at M = 1, 2, 4, 8; the three
+             connectivity kernels bit for bit against their plain
+             versions on a shard row (views into the stacked buffers),
+             one phase's 399,996-slot union and the answering machine's
+             199,998-slot certificate, ``segment_min`` also at the inputs
+             the pipeline hands it there; and the process-group program
+             in a one-rank NCCL group on a one-dim ``DeviceMesh``:
+             ``find_bridges(..., mesh=...)`` with both finals against the
+             planted truth and the program's buffers against the
+             simulator's at M = 1 (no phase, so no exchange: counted).
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode,
@@ -84,11 +108,13 @@ exits non-zero and prints no result. Without a card it exits 2.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -100,7 +126,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import analyze, find_bridges
 from repro_torch.connectivity.common import tour_state
 from repro_torch.connectivity.registry import analysis_kinds, get_analysis
-from repro_torch.core.api import masked_arrays, pad_graph, resolve_certificate
+from repro_torch.core import merge as merge_mod
+from repro_torch.core.api import (
+    MIN_BUCKET,
+    masked_arrays,
+    pad_graph,
+    resolve_certificate,
+)
 from repro_torch.core.bridges_host import bridges_dfs
 from repro_torch.core.certificate import (
     certificate_capacity,
@@ -108,11 +140,26 @@ from repro_torch.core.certificate import (
     sfs_certificate_ex,
     sparse_certificate_ex,
 )
-from repro_torch.core.certs import certificate_names
+from repro_torch.core.certs import certificate_builder, certificate_names
 from repro_torch.core.forest import _sfs_impl, hook_round, spanning_forest_ex
+from repro_torch.core.merge import (
+    SCHEDULES,
+    build_distributed_analysis_fn,
+    certify_shards,
+    merge_phase_plan,
+    simulate_merge_host,
+)
+from repro_torch.core.partition import partition_edges
 from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
-from repro_torch.graph.datastructs import INF32, INT
+from repro_torch.graph.datastructs import (
+    INF32,
+    INT,
+    EdgeList,
+    admission_capacity,
+    compact_edges,
+    concat_edges,
+)
 from repro_torch.kernels import (
     cuda_lib,
     launch_counts,
@@ -170,6 +217,7 @@ from repro_torch.kernels.segment_min.kernel import (
 )
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.models.recsys import init_sasrec, sasrec_hidden
+from repro_torch.obs import disable_tracing, enable_tracing
 from repro_torch.training.steps import make_recsys_steps
 
 #: the paper's Fig. 2 operating point (configs/bridges_dense.py::CONFIG)
@@ -208,6 +256,15 @@ ANALYZE_RUNS = [(kind, final, None)
                 for kind in ("bridges", "cuts", "2ecc", "bridge_tree", "bcc")
                 for final in ("device", "host")]
 ANALYZE_RUNS += [("cuts", "host", "hybrid"), ("bcc", "host", "hybrid")]
+#: the distributed phase: M machines (``hierarchical`` on a rows x cols
+#: grid), the kinds it merges with their certificates, the M of the scaling
+#: sweep
+DIST_MACHINES, DIST_GRID = 8, (2, 4)
+DIST_KINDS = {"bridges": "2ec", "cuts": "sfs"}
+DIST_SCALING = (1, 2, 4, 8)
+#: warm runs of each simulated merge, after one cold run: the line keeps
+#: the median's split (host-bound runs vary between runs)
+DIST_WARM_RUNS = 3
 #: the run whose launches the kernels line reports, per kernel
 LAUNCHES_FROM = {"boruvka_round": "find_bridges(final='device')",
                  "segment_min": "find_bridges(final='device')",
@@ -920,6 +977,336 @@ def phase_check() -> None:
           "buffers_equal_to_cpu": buffers})
 
 
+# ------------------------------------------------- the merge across machines
+def stacked_shards(src, dst, m: int) -> tuple:
+    """The partition of the Fig. 2 graph over ``m`` machines (seed
+    ``SEED``), each row padded to its power-of-two bucket as the
+    distributed entry point pads it: stacked ``[m, cap]`` tensors on the
+    card, and ``cap``."""
+    psrc, pdst, pmask = partition_edges(src, dst, N_NODES, m, seed=SEED)
+    cap = admission_capacity(psrc.shape[1], MIN_BUCKET)
+    pad = ((0, 0), (0, cap - psrc.shape[1]))
+    return tuple(torch.from_numpy(np.pad(a, pad)).cuda()
+                 for a in (psrc, pdst, pmask)), cap
+
+
+def answer(cert, kind: str, final: str):
+    """One machine's answer off its merged certificate: the kind's device
+    final (``tour_state`` and ``device_fn`` at the graph's own n) or its
+    host reference, as the distributed program and entry point give it."""
+    analysis = get_analysis(kind)
+    if final == "host":
+        return analysis.host_fn(*masked_arrays((cert.src, cert.dst,
+                                                cert.mask)), N_NODES)
+    st = tour_state(cert.src, cert.dst, cert.mask, N_NODES)
+    return analysis.to_result(analysis.device_fn(
+        cert.src, cert.dst, cert.mask, N_NODES, st, N_NODES - 1), N_NODES)
+
+
+def run_simulated(shards, cap: int, schedule: str, kind: str, run: str,
+                  line: str) -> tuple:
+    """One merge through the host simulator on the card: every machine's
+    local certificate (``certify_shards``), then ``simulate_merge_host``,
+    under a live tracer, launch counts zeroed just before and read just
+    after. Returns the merged certificates and the record: wall seconds,
+    the local certificates' seconds and each ``merge/level{q}`` span's,
+    launches, host syncs in round loops and peak device bytes."""
+    cert = DIST_KINDS[kind]
+    certify = certificate_builder(cert)
+    m = shards[0].shape[0]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tr = enable_tracing()
+    try:
+        t0 = time.perf_counter()
+        local = certify_shards(*shards, N_NODES, certify=certify)
+        merged = simulate_merge_host(local, schedule, certify=certify,
+                                     grid=DIST_GRID)
+        sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        disable_tracing()
+    launches = launch_counts()
+    roll = tr.rollup()
+    rec = {"phase": line, "run": run, "schedule": schedule, "kind": kind,
+           "certificate": cert, "machines": m, "shard_slots": cap,
+           "phases": len(merge_phase_plan(schedule, m, grid=DIST_GRID)),
+           "seconds": seconds,
+           "local_certificates_s": roll["merge/certify"]["total_s"],
+           "levels_s": {name: row["total_s"] for name, row in roll.items()
+                        if name.startswith("merge/level")},
+           # in start order: hierarchical runs each row's levels, then
+           # each column's (its level0 spans are both kinds of phase)
+           "level_spans": [[sp["name"], sp["attrs"]["machines"], sp["dur"]]
+                           for sp in tr.spans()
+                           if sp["name"].startswith("merge/level")],
+           "certificates_built": roll["merge/certify"]["count"] + roll.get(
+               "merge/machine", {"count": 0})["count"],
+           "launches": launches,
+           "host_syncs_in_round_loops": (launches["boruvka_round"]
+                                         + launches["frontier_round"]),
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    return merged, rec
+
+
+def run_simulated_warm(shards, cap: int, schedule: str, kind: str,
+                       line: str) -> tuple:
+    """``run_simulated`` once cold, then ``DIST_WARM_RUNS`` times warm
+    (launch counts equal across all); the warm run of median wall seconds,
+    with every warm run's seconds beside it (``warm_seconds``), and its
+    merged certificates."""
+    cold = run_simulated(shards, cap, schedule, kind, "cold", line)[1]
+    warm = [run_simulated(shards, cap, schedule, kind, "warm", line)
+            for _ in range(DIST_WARM_RUNS)]
+    if any(rec["launches"] != cold["launches"] for _, rec in warm):
+        raise AssertionError(f"{line} {schedule}/{kind}: launch counts "
+                             f"differ between runs")
+    merged, rec = sorted(warm, key=lambda mr: mr[1]["seconds"])[
+        DIST_WARM_RUNS // 2]
+    rec.update(cold_seconds=cold["seconds"],
+               warm_seconds=[r["seconds"] for _, r in warm])
+    return merged, rec
+
+
+def check_answers(merged, schedule: str, kind: str, truth, rec) -> None:
+    """Machine 0's answer with both finals (and machine M - 1's where the
+    schedule leaves the global certificate on every machine) against the
+    planted truth; the finals' seconds and launches on machine 0 into
+    ``rec``."""
+    machines = [0] if schedule == "paper" else [0, len(merged) - 1]
+    for i in machines:
+        for final in ("device", "host"):
+            sync()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = answer(merged[i], kind, final)
+            sync()
+            if i == 0:
+                rec[f"final_{final}_s"] = time.perf_counter() - t0
+                rec[f"final_{final}_launches"] = launch_counts()
+            if not same_answer(kind, got, truth[kind]):
+                raise AssertionError(f"distributed {schedule}/{kind}: machine "
+                                     f"{i}, final={final!r} missed the "
+                                     f"planted truth")
+    rec["answered_on"] = machines
+
+
+def path_kernel_checks(buffers: dict) -> list:
+    """The three connectivity kernels at the distributed path's shapes, each
+    bit for bit against its plain version: per buffer the Borůvka round at
+    identity and round-2 labels, the frontier round at every round of one
+    scan-first pass, and ``segment_min`` at the inputs the pipeline hands
+    it there (recorded from a run of the stage that reads the buffer)."""
+    recs = []
+    for label, (el, seg_args) in buffers.items():
+        n = el.n_nodes
+        valid = el.mask & (el.src != el.dst)
+        ident = torch.arange(n, dtype=INT, device=el.device)
+        round2, _, _ = hook_round(el.src, el.dst, valid, ident, n)
+        errs = [require_equal(f"{label}: boruvka_round[{tag}]",
+                              boruvka_round(el.src, el.dst, valid, labels, n),
+                              boruvka_round_ref(el.src, el.dst, valid, labels,
+                                                n))
+                for tag, labels in (("identity", ident), ("round2", round2))]
+        recs.append({"name": "boruvka_round", "buffer": label,
+                     "shape": {"E": el.capacity, "n": n,
+                               "valid_slots": int(valid.sum()),
+                               "view": el.src._base is not None},
+                     "max_abs_err": max(errs)})
+        rounds = sfs_rounds_plain(el)
+        errs = []
+        for i, (frontier, visited) in enumerate(rounds):
+            args = (el.src, el.dst, valid, frontier, visited, n)
+            errs += [require_equal(f"{label}: frontier_round[{i}]", a, b)
+                     for a, b in zip(frontier_round(*args),
+                                     frontier_round_ref(*args))]
+        recs.append({"name": "frontier_round", "buffer": label,
+                     "shape": {"E": el.capacity, "n": n},
+                     "sfs_rounds": len(rounds), "max_abs_err": max(errs)})
+        errs = [require_equal(f"{label}: segment_min[{j}]",
+                              segment_min(keys, ids, n),
+                              segment_min_ref(keys, ids, n))
+                for j, (keys, ids, n) in enumerate(seg_args)]
+        recs.append({"name": "segment_min", "buffer": label,
+                     "shapes": [{"E": k.numel(), "n": n}
+                                for k, _, n in seg_args],
+                     "max_abs_err": max(errs)})
+    for rec in recs:
+        emit({"phase": "distributed_kernel_check", **rec})
+    return recs
+
+
+@contextlib.contextmanager
+def recording_segment_min(calls: list):
+    """``segment_min``'s inputs (cloned) recorded for the block's duration,
+    the op still launching the kernel."""
+    saved = segment_min_ops.segment_min_cuda
+
+    def record(keys, ids, n):
+        calls.append((keys.clone(), ids.clone(), n))
+        return saved(keys, ids, n)
+
+    segment_min_ops.segment_min_cuda = record
+    try:
+        yield
+    finally:
+        segment_min_ops.segment_min_cuda = saved
+
+
+def phase_process_group(src, dst, planted, shards1, sim1) -> dict:
+    """The process-group program on the card: a one-rank NCCL group and a
+    one-dim ``DeviceMesh``. ``find_bridges(..., mesh=...)`` with both
+    finals against the planted truth (wall seconds, launches), and the
+    program's buffers on the M = 1 partition against the simulator's
+    machine 0 at M = 1, bit for bit. With one machine the schedule has no
+    phase: no exchange happens (counted)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    exchanges = []
+    saved = merge_mod._exchange
+
+    def counted(*args):
+        exchanges.append(1)
+        return saved(*args)
+
+    rec = {"phase": "distributed_process_group", "backend": "nccl",
+           "world_size": 1, "phases": len(merge_phase_plan("paper", 1))}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        merge_mod._exchange = counted
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1),
+                              mesh_dim_names=("machines",))
+            for final in ("device", "host"):
+                for run in ("cold", "warm"):
+                    sync()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    got = find_bridges(src, dst, N_NODES, final=final,
+                                       mesh=mesh, seed=SEED)
+                    sync()
+                    rec[f"{final}_{run}_s"] = time.perf_counter() - t0
+                if got != planted:
+                    raise AssertionError(f"find_bridges(mesh, final="
+                                         f"{final!r}) missed the planted "
+                                         f"bridges")
+                rec[f"{final}_launches"] = launch_counts()
+                fn = build_distributed_analysis_fn(mesh, ("machines",),
+                                                   N_NODES, final=final)
+                fn(*(t[0] for t in shards1))
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*(t[0] for t in shards1))
+                sync()
+                rec[f"{final}_program_warm_s"] = time.perf_counter() - t0
+                cert = sim1[0]
+                if final == "host":
+                    want = compact_edges(cert, certificate_capacity(N_NODES))
+                    want = (want.src, want.dst, want.mask)
+                else:
+                    st = tour_state(cert.src, cert.dst, cert.mask, N_NODES)
+                    want = get_analysis("bridges").device_fn(
+                        cert.src, cert.dst, cert.mask, N_NODES, st,
+                        N_NODES - 1)
+                rec[f"{final}_max_abs_err_vs_simulator"] = max(
+                    require_equal(f"process group vs simulator [{final}]",
+                                  a, b) for a, b in zip(out, want))
+        finally:
+            merge_mod._exchange = saved
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    partition_edges(src, dst, N_NODES, 1, seed=SEED)
+    rec["partition_s"] = time.perf_counter() - t0
+    rec["exchanges"] = len(exchanges)
+    if rec["exchanges"]:
+        raise AssertionError("a one-rank group exchanged certificates")
+    emit(rec)
+    return rec
+
+
+def phase_distributed(src, dst, truth) -> dict:
+    """The paper's merge across machines on the card (module docstring,
+    phase 8). Returns each kernel's launches, per kind, in the M = 8
+    ``paper`` run (certificates and merge levels) and machine 0's device
+    final, each counted from 0; fails where a connectivity kernel of the
+    path was not launched."""
+    shards8, cap8 = stacked_shards(src, dst, DIST_MACHINES)
+    launches: dict[str, dict] = {}
+    merged_of = {}
+    for kind in DIST_KINDS:
+        for schedule in SCHEDULES:
+            merged, rec = run_simulated_warm(shards8, cap8, schedule, kind,
+                                             "distributed")
+            check_answers(merged, schedule, kind, truth, rec)
+            emit(rec)
+            merged_of[(schedule, kind)] = merged
+            if schedule == "paper":
+                for name, count in rec["launches"].items():
+                    launches.setdefault(name, {})[kind] = (
+                        count + rec["final_device_launches"][name])
+    certify = certificate_builder("2ec")
+    phase_profile(
+        "simulate_merge_host(paper, bridges, M=8)",
+        lambda: simulate_merge_host(certify_shards(*shards8, N_NODES,
+                                                   certify=certify),
+                                    "paper", certify=certify),
+        lambda merged: answer(merged[0], "bridges", "device")
+        == truth["bridges"])
+    for name, kind in (("boruvka_round", "bridges"),
+                       ("segment_min", "bridges"),
+                       ("frontier_round", "cuts")):
+        if launches[name][kind] <= 0:
+            raise AssertionError(f"the distributed {kind} path launched no "
+                                 f"{name}")
+    sims = {}
+    for m in DIST_SCALING:
+        shards, cap = (shards8, cap8) if m == DIST_MACHINES else \
+            stacked_shards(src, dst, m)
+        merged, rec = run_simulated_warm(shards, cap, "paper", "bridges",
+                                         "distributed_scaling")
+        check_answers(merged, "paper", "bridges", truth, rec)
+        emit(rec)
+        if m == 1:
+            sims[1] = (shards, merged)
+        del shards
+    # the kernels at this path's shapes: a shard row (views into the
+    # stacked [8, 2^21] buffers), one phase's union, the answering
+    # machine's certificate
+    local = certify_shards(*shards8, N_NODES,
+                           certify=certificate_builder("2ec"))
+    row = EdgeList(shards8[0][DIST_MACHINES - 1],
+                   shards8[1][DIST_MACHINES - 1],
+                   shards8[2][DIST_MACHINES - 1], N_NODES)
+    union = concat_edges(local[0], local[1])
+    answering = merged_of[("paper", "bridges")][0]
+    buffers = {}
+    for label, el in (("shard_row", row), ("phase_union", union),
+                      ("answering_certificate", answering)):
+        calls = []
+        with recording_segment_min(calls):
+            if label == "answering_certificate":
+                tour_state(el.src, el.dst, el.mask, N_NODES)
+            else:
+                certificate_builder("sfs")(el,
+                                           capacity=certificate_capacity(
+                                               N_NODES))
+        slots = torch.arange(el.capacity, dtype=INT, device="cuda")
+        keys = torch.where(el.mask, slots, INF32)
+        calls.append((keys, el.src.contiguous(), N_NODES))
+        if len(calls) < 2:
+            raise AssertionError(f"{label}: no segment_min on the path")
+        buffers[label] = (el, calls)
+    path_kernel_checks(buffers)
+    del local, union, buffers
+    phase_process_group(src, dst, truth["bridges"], *sims[1])
+    return {name: per_kind for name, per_kind in launches.items()
+            if any(per_kind.values())}
+
+
 def right_aligned(seq: np.ndarray) -> np.ndarray:
     """Each history of ``recsys_batches`` moved to end at the last position
     (padding first), as a served user's history is: the user state is the
@@ -1360,6 +1747,7 @@ def main() -> int:
                       lambda got: got == truth[kind])
     phase_kernel_paths(src, dst, planted, truth)
     phase_check()
+    dist_launches = phase_distributed(src, dst, truth)
 
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1394,6 +1782,8 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            **({"launches_distributed": dist_launches[name]}
+               if name in dist_launches else {}),
             **({"previous_kernel_ms": rec["previous_kernel_ms"]}
                if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)

@@ -1,0 +1,477 @@
+"""Distributed certificate merging (paper §III phases) over
+``torch.distributed`` (``repro.core.merge``).
+
+Three schedules, all running on fixed 2(n−1)-slot certificate buffers:
+
+  * ``paper`` — tree reduction. Phase q: machine ``i`` with
+    ``i % 2^{q+1} == 2^q`` sends its certificate to ``i − 2^q`` and goes
+    idle. SPMD detail kept from the reference: an "idle" machine still
+    re-certifies its own buffer against an all-masked one every phase, so
+    every machine's state equals the collective program's.
+  * ``xor`` — recursive doubling: phase q exchanges with partner
+    ``i XOR 2^q`` and every machine merges every phase; afterwards every
+    machine holds the global certificate.
+  * ``hierarchical`` — ``xor`` per mesh axis, the last-listed (fastest)
+    axis first.
+
+Certificate union is associative and commutative over DISJOINT edge
+multisets (cert(cert(A) ⊎ cert(B)) certifies A ⊎ B), so every schedule
+computes a certificate of the whole graph; every phase of every schedule
+merges states covering disjoint shard subsets.
+
+Two forms of the same schedules:
+
+* the host simulator (``simulate_merge_host``, ``simulate_churn_host``):
+  one process drives every machine's certificate in turn, on whatever
+  device the certificates live on (the card, or the CPU in the tests);
+* the process-group program (``build_distributed_analysis_fn``): every
+  rank of a ``DeviceMesh`` runs it on its own shard, and the phases
+  exchange certificates with ``dist.batch_isend_irecv``. The mesh's
+  ``mesh_dim_names`` stand for the JAX mesh's axis names; machines are
+  numbered row-major over ``machine_axes`` in the order listed, as
+  ``lax.ppermute`` and ``P(axes, None)`` number them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.certificate import certificate_capacity, sparse_certificate
+from repro_torch.core.certs import get_certificate
+from repro_torch.graph.datastructs import (
+    INT,
+    EdgeList,
+    compact_edges,
+    concat_edges,
+    resolve_device,
+    tombstone_mask,
+)
+from repro_torch.obs import get_tracer
+
+SCHEDULES = ("paper", "xor", "hierarchical")
+
+
+def _phase_perm(schedule: str, m: int, q: int):
+    stride = 1 << q
+    if schedule == "paper":
+        return [
+            (i, i - stride)
+            for i in range(m)
+            if i % (2 * stride) == stride
+        ]
+    # xor recursive doubling
+    return [(i, i ^ stride) for i in range(m) if (i ^ stride) < m]
+
+
+def _phases(m: int) -> int:
+    return max(int(math.ceil(math.log2(m))), 0)
+
+
+def merge_phase_plan(schedule: str, m: int, grid=None):
+    """The whole schedule as explicit phases: ``plan[q]`` is the list of
+    ``(src, dst)`` machine-index pairs exchanged in phase ``q``.
+
+    For ``paper``/``xor`` this is ``_phase_perm`` per phase; for
+    ``hierarchical`` the per-row xor phases come first (every row exchanges
+    at once, so each row's phase-q perms share one plan entry), then the
+    per-column phases — the order ``simulate_merge_host`` runs them in.
+    """
+    if m <= 1:
+        return []
+    if schedule in ("paper", "xor"):
+        return [_phase_perm(schedule, m, q) for q in range(_phases(m))]
+    if schedule != "hierarchical":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    rows, cols = grid if grid is not None else (2, m // 2)
+    if rows * cols != m:
+        raise ValueError(f"grid {rows}x{cols} != {m} machines")
+    plan = []
+    for q in range(int(math.ceil(math.log2(max(cols, 1))))):
+        perm = _phase_perm("xor", cols, q)
+        plan.append([(r * cols + s, r * cols + d)
+                     for r in range(rows) for (s, d) in perm])
+    for q in range(int(math.ceil(math.log2(max(rows, 1))))):
+        perm = _phase_perm("xor", rows, q)
+        plan.append([(s * cols + c, d * cols + c)
+                     for c in range(cols) for (s, d) in perm])
+    return plan
+
+
+# ------------------------------------------------------------ host simulator
+def empty_certificate(n_nodes: int, capacity: int | None = None,
+                      device=None) -> EdgeList:
+    """All-masked-off buffer: what a machine that receives nothing folds
+    (a union no-op). On the card unless ``device`` names another."""
+    cap = certificate_capacity(n_nodes) if capacity is None else capacity
+    dev = resolve_device(device)
+    return EdgeList(torch.zeros(cap, dtype=INT, device=dev),
+                    torch.zeros(cap, dtype=INT, device=dev),
+                    torch.zeros(cap, dtype=torch.bool, device=dev), n_nodes)
+
+
+def certify_shards(psrc, pdst, pmask, n_nodes: int, certify=None) -> list:
+    """Every machine's local certificate, machine by machine, from the
+    stacked ``[M, cap]`` shard tensors (each row a machine's shard, on the
+    tensors' device): the input of ``simulate_merge_host``. One
+    ``merge/certify`` span per machine."""
+    certify = sparse_certificate if certify is None else certify
+    cap = certificate_capacity(n_nodes)
+    tr = get_tracer()
+    certs = []
+    for i in range(psrc.shape[0]):
+        with tr.span("merge/certify", machine=i) as sp:
+            certs.append(sp.sync(certify(
+                EdgeList(psrc[i], pdst[i], pmask[i], n_nodes),
+                capacity=cap)))
+    return certs
+
+
+def simulate_merge_host(certs, schedule: str, certify=None, grid=None):
+    """One merge schedule driven machine by machine in one process: no
+    collectives, the real ``_phase_perm`` on a list of per-machine
+    certificates, including the SPMD detail that a machine receiving
+    nothing re-certifies against an empty buffer. Runs on the device the
+    certificates live on.
+
+    ``certify`` is the per-phase certificate builder (default: the 2-edge
+    ``sparse_certificate``). ``grid=(rows, cols)`` lays the machines out
+    for ``hierarchical`` (cols = fastest axis, merged first). Returns the
+    per-machine certificates after all phases; under ``paper`` machine 0
+    answers, under ``xor``/``hierarchical`` every machine holds the global
+    certificate.
+    """
+    certify = sparse_certificate if certify is None else certify
+    n = certs[0].n_nodes
+    cap = certs[0].capacity
+    empty = empty_certificate(n, cap, device=certs[0].device)
+
+    def step(a, b):
+        return certify(concat_edges(a, b),
+                       capacity=certificate_capacity(n))
+
+    def run_phases(cs, sched):
+        m = len(cs)
+        tr = get_tracer()
+        for q in range(_phases(m)):
+            perm = _phase_perm(sched, m, q)
+            recv = {d: cs[s] for (s, d) in perm}
+            # per-level span with per-machine children: the host-side view
+            # of the paper's merge-phase cost term
+            with tr.span(f"merge/level{q}", schedule=sched, machines=m,
+                         receivers=len(perm)):
+                out = []
+                for i in range(m):
+                    with tr.span("merge/machine", machine=i, level=q,
+                                 receiving=i in recv) as sp:
+                        out.append(sp.sync(step(cs[i], recv.get(i, empty))))
+                cs = out
+        return cs
+
+    if schedule in ("paper", "xor"):
+        return run_phases(list(certs), schedule)
+    if schedule != "hierarchical":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    m = len(certs)
+    rows, cols = grid if grid is not None else (2, m // 2)
+    if rows * cols != m:
+        raise ValueError(f"grid {rows}x{cols} != {m} machines")
+    g = [list(certs[r * cols:(r + 1) * cols]) for r in range(rows)]
+    g = [run_phases(row, "xor") for row in g]
+    for c in range(cols):
+        col = run_phases([g[r][c] for r in range(rows)], "xor")
+        for r in range(rows):
+            g[r][c] = col[r]
+    return [cert for row in g for cert in row]
+
+
+def simulate_churn_host(shards, ksrc, kdst, schedule: str = "paper",
+                        certify=None, grid=None):
+    """The distributed deletion rule in one process: tombstone each
+    machine's live edge shard with the (global, replicated) deletion keys,
+    re-certify per machine, then re-run the merge phases — what
+    ``build_distributed_analysis_fn(with_deletions=True)`` does, minus the
+    collectives.
+
+    ``shards``: per-machine ``EdgeList`` edge shards (not certificates).
+    Returns the per-machine merged certificates, answering machine as in
+    ``simulate_merge_host``.
+    """
+    certify = sparse_certificate if certify is None else certify
+    tr = get_tracer()
+    dev = shards[0].device
+    ks = torch.as_tensor(ksrc, dtype=INT, device=dev)
+    kd = torch.as_tensor(kdst, dtype=INT, device=dev)
+    km = torch.ones(ks.shape, dtype=torch.bool, device=dev)
+    certs = []
+    for i, sh in enumerate(shards):
+        with tr.span("merge/recertify", machine=i) as sp:
+            m2, _ = tombstone_mask(sh.src, sh.dst, sh.mask, ks, kd, km)
+            certs.append(sp.sync(
+                certify(EdgeList(sh.src, sh.dst, m2, sh.n_nodes),
+                        capacity=certificate_capacity(sh.n_nodes))))
+    return simulate_merge_host(certs, schedule, certify=certify, grid=grid)
+
+
+# ------------------------------------------------------ process-group program
+class MachineGroup:
+    """The process group of one rank's machines: ``group``, the global rank
+    of each machine index (``ranks``), this rank's machine index
+    (``index``) and the machine count (``size``)."""
+
+    def __init__(self, group, ranks: list[int]):
+        self.group = group
+        self.ranks = ranks
+        self.index = ranks.index(dist.get_rank())
+        self.size = len(ranks)
+
+
+def machine_axes_of(mesh, machine_axes=None) -> tuple:
+    """``machine_axes`` as a tuple of mesh dim names (default: all of
+    them, in the mesh's order); unknown names raise."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if machine_axes is None:
+        axes = names
+    elif isinstance(machine_axes, str):
+        axes = (machine_axes,)
+    else:
+        axes = tuple(machine_axes)
+    if not axes or any(a not in names for a in axes):
+        raise ValueError(f"machine axes {axes} must name dims of the mesh "
+                         f"{names}")
+    return axes
+
+
+def flattened_ranks(mesh, machine_axes) -> list[list[int]]:
+    """Every machine group's global ranks, one list per coordinate of the
+    mesh's other dims: ranks row-major over ``machine_axes`` in the order
+    listed (list position = machine index)."""
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in machine_axes]
+    others = [d for d in range(len(names)) if d not in dims]
+    m = math.prod(mesh.mesh.shape[d] for d in dims)
+    return mesh.mesh.permute(*others, *dims).reshape(-1, m).tolist()
+
+
+_GROUPS: dict[tuple, MachineGroup] = {}
+
+
+def _first_collective(group, device_type: str) -> None:
+    """One all-reduce over every rank of ``group``: NCCL lets a batched
+    point-to-point call involve a subset of a group's ranks only after a
+    collective over all of them."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
+
+
+def machine_group(mesh, machine_axes) -> MachineGroup:
+    """The group of this rank's machines over ``machine_axes``, flattened
+    row-major in the order listed. One axis is the mesh's own group of that
+    dim; several are a group made with ``dist.new_group``, which every rank
+    calls for every group in the same order (a collective the first time
+    for each ``(mesh, axes)``; cached after)."""
+    axes = machine_axes_of(mesh, machine_axes)
+    key = (id(mesh), axes)
+    mg = _GROUPS.get(key)
+    if mg is not None:
+        return mg
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+        mg = MachineGroup(group, dist.get_process_group_ranks(group))
+    else:
+        me = dist.get_rank()
+        for ranks in flattened_ranks(mesh, axes):
+            group = dist.new_group(ranks=ranks)
+            if me in ranks:
+                mg = MachineGroup(group, ranks)
+    _first_collective(mg.group, mesh.device_type)
+    _GROUPS[key] = mg
+    return mg
+
+
+def _exchange(state: tuple, mg: MachineGroup, perm) -> tuple:
+    """One phase's ``ppermute`` of the pair ``state[:3]``: this machine
+    sends to its partner and receives from its partner, in one
+    ``batch_isend_irecv`` (a machine with nothing to do posts nothing). A
+    machine that receives nothing gets zeros, an all-masked buffer, as
+    ``ppermute``'s non-receivers do."""
+    i = mg.index
+    recv = tuple(torch.zeros_like(t) for t in state[:3])
+    ops = []
+    for s, d in perm:
+        if s == i:
+            ops += [dist.P2POp(dist.isend, t.contiguous(), mg.ranks[d],
+                               group=mg.group) for t in state[:3]]
+        if d == i:
+            ops += [dist.P2POp(dist.irecv, t, mg.ranks[s], group=mg.group)
+                    for t in recv]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv
+
+
+def _merge_phases_one_axis(state: tuple, fold, n_nodes: int,
+                           mg: MachineGroup, schedule: str) -> tuple:
+    """log2(m) merge phases over one (possibly flattened) group of m
+    machines. ``state`` is a certificate-registry state tuple (pair buffers
+    first, aux arrays after — core.certs). Only the pair is exchanged; aux
+    state (warm-start labels) stays machine-local, carried across phases
+    by ``fold``. Non-receivers fold an all-masked buffer: a union no-op."""
+    for q in range(_phases(mg.size)):
+        perm = _phase_perm(schedule, mg.size, q)
+        recv = _exchange(state, mg, perm)
+        state = fold(state, EdgeList(*recv, n_nodes))
+    return state
+
+
+def merged_certificate(local: EdgeList, mesh, machine_axes,
+                       schedule: str = "paper",
+                       merge: str = "recertify",
+                       certificate: str = "2ec") -> EdgeList:
+    """This rank's local edge shard -> its certificate after every merge
+    phase (under ``paper`` machine 0's is the global one; under
+    ``xor``/``hierarchical`` every machine's is).
+
+    ``machine_axes``: mesh dim names acting as "machines". For
+    ``paper``/``xor`` they are flattened into one group; ``hierarchical``
+    merges per axis, last-listed axis first (put the fastest axis last).
+
+    ``merge``: ``recertify`` (re-certify the union each phase) or
+    ``incremental`` (warm-start state carried across phases). Only
+    certificates whose descriptor declares ``warm_merge`` warm-start; the
+    rest re-certify the union each phase.
+
+    ``certificate``: any name in the certificate registry (``core.certs``).
+    """
+    cert_desc = get_certificate(certificate)
+    cap = certificate_capacity(local.n_nodes)
+    if merge not in ("recertify", "incremental"):
+        raise ValueError(f"unknown merge mode {merge!r}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    axes = machine_axes_of(mesh, machine_axes)
+    if merge == "incremental" and cert_desc.warm_merge:
+        state = cert_desc.load_state(local, cap)
+
+        def fold(state, recv):
+            return cert_desc.fold_state(state, recv, cap)
+    else:
+        c = cert_desc.build(local, capacity=cap)
+        state = (c.src, c.dst, c.mask)
+
+        def fold(state, recv):
+            own = EdgeList(state[0], state[1], state[2], local.n_nodes)
+            c2 = cert_desc.build(concat_edges(own, recv), capacity=cap)
+            return c2.src, c2.dst, c2.mask
+
+    if schedule == "hierarchical":
+        for ax in reversed(axes):
+            state = _merge_phases_one_axis(state, fold, local.n_nodes,
+                                           machine_group(mesh, ax), "xor")
+    else:
+        state = _merge_phases_one_axis(state, fold, local.n_nodes,
+                                       machine_group(mesh, axes), schedule)
+    return EdgeList(state[0], state[1], state[2], local.n_nodes)
+
+
+def build_distributed_analysis_fn(
+    mesh,
+    machine_axes,
+    n_nodes: int,
+    schedule: str = "paper",
+    final: str = "device",
+    merge: str = "recertify",
+    kind: str = "bridges",
+    with_deletions: bool = False,
+    certificate: str | None = None,
+):
+    """Return the program every rank of ``mesh`` runs for ANY
+    analysis-registry kind: ``(src, dst, mask[, ksrc, kdst, kmask]) ->``
+    this rank's result buffers, its row of the reference's ``[M, ...]``
+    output.
+
+    ``src``, ``dst`` (int32) and ``mask`` (bool) are this rank's shard:
+    row ``machine_group(mesh, machine_axes).index`` of the partition, on
+    the mesh's device type (a mismatch raises; nothing is copied across
+    devices). The program certifies the shard with the kind's certificate
+    (or ``certificate``), runs the merge phases, then, with
+    ``final='device'``, the kind's device final stage on the merged
+    certificate; ``final='host'`` returns the merged certificate
+    compacted into 2(n−1) slots, on which the caller runs the kind's host
+    reference.
+
+    ``with_deletions=True`` adds three replicated ``(ksrc, kdst, kmask)``
+    deletion-key buffers: each machine tombstones its own shard before
+    certifying, then the phases re-merge as usual (``simulate_churn_host``
+    is the same rule in one process).
+    """
+    # Imported here: the registry builds on core's pipeline stages, so a
+    # module-level import would be circular.
+    from repro_torch.connectivity.common import tour_state
+    from repro_torch.connectivity.registry import get_analysis
+
+    analysis = get_analysis(kind)
+    cert_name = certificate if certificate is not None else analysis.certificate
+    axes = machine_axes_of(mesh, machine_axes)
+    if final not in ("device", "host"):
+        raise ValueError(f"unknown final stage {final!r}")
+    cert_cap = certificate_capacity(n_nodes)
+    out_cap = max(n_nodes - 1, 1)
+
+    def body(src, dst, mask, *keys):
+        if len(keys) != (3 if with_deletions else 0):
+            raise TypeError(f"expected {3 if with_deletions else 0} key "
+                            f"buffers, got {len(keys)}")
+        for t in (src, dst, mask, *keys):
+            if t.device.type != mesh.device_type:
+                raise ValueError(
+                    f"a buffer on {t.device} for a {mesh.device_type!r} "
+                    f"mesh; move it to the mesh's device first")
+        lmask = mask
+        if with_deletions:
+            lmask, _ = tombstone_mask(src, dst, lmask, *keys)
+        local = EdgeList(src, dst, lmask, n_nodes)
+        cert = merged_certificate(local, mesh, axes, schedule, merge,
+                                  certificate=cert_name)
+        if final == "device":
+            st = tour_state(cert.src, cert.dst, cert.mask, n_nodes)
+            return analysis.device_fn(cert.src, cert.dst, cert.mask,
+                                      n_nodes, st, out_cap)
+        o = compact_edges(cert, cert_cap)
+        return o.src, o.dst, o.mask
+
+    return body
+
+
+def build_distributed_bridges_fn(
+    mesh,
+    machine_axes,
+    n_nodes: int,
+    schedule: str = "paper",
+    final: str = "device",
+    merge: str = "recertify",
+):
+    """Thin alias: the kind='bridges' distributed analysis."""
+    return build_distributed_analysis_fn(
+        mesh, machine_axes, n_nodes, schedule=schedule, final=final,
+        merge=merge, kind="bridges")
+
+
+def result_shard_zero(out, mesh, machine_axes):
+    """Machine 0's result buffers on every rank of its machine group: a
+    broadcast of each tensor of ``out`` (a tensor or a tuple of them) from
+    machine 0 — the answer the reference's single controller reads from
+    shard 0 of a ``[M, ...]`` result."""
+    mg = machine_group(mesh, machine_axes)
+
+    def from_zero(t):
+        t = t.clone()
+        dist.broadcast(t, src=mg.ranks[0], group=mg.group)
+        return t
+
+    if isinstance(out, torch.Tensor):
+        return from_zero(out)
+    return tuple(from_zero(t) for t in out)

@@ -7,7 +7,8 @@ from repro_torch.graph.datastructs import (
     compact_edges,
     concat_edges,
     pad_edges,
+    tombstone_mask,
 )
 
 __all__ = ["INF32", "INT", "EdgeList", "admission_capacity", "compact_edges",
-           "concat_edges", "pad_edges", "generators"]
+           "concat_edges", "pad_edges", "tombstone_mask", "generators"]

@@ -142,6 +142,26 @@ def compact_edges(edges: EdgeList, capacity: int,
                     out_mask[:capacity], edges.n_nodes)
 
 
+def tombstone_mask(src, dst, mask, ksrc, kdst, kmask):
+    """Mask out every live slot whose unordered endpoint pair matches a key
+    (``repro.graph.datastructs.tombstone_mask``).
+
+    A deletion is a (min, max)-key match against the live buffer, never a
+    compaction, so the buffer keeps its shape. Matches ALL live copies of a
+    key (an endpoint pair names a link; its parallel copies die with it).
+    Returns ``(new_mask, removed)`` where ``removed`` is the int32 count of
+    the slots masked out. Leading dims broadcast: ``[..., E]`` buffers
+    against ``[..., K]`` keys.
+    """
+    lo, hi = torch.minimum(src, dst), torch.maximum(src, dst)
+    klo, khi = torch.minimum(ksrc, kdst), torch.maximum(ksrc, kdst)
+    eq = ((lo[..., :, None] == klo[..., None, :])
+          & (hi[..., :, None] == khi[..., None, :])
+          & kmask[..., None, :])
+    hit = mask & eq.any(dim=-1)
+    return mask & ~hit, hit.sum(dtype=INT)
+
+
 def concat_edges(a: EdgeList, b: EdgeList) -> EdgeList:
     if a.n_nodes != b.n_nodes:
         raise ValueError(f"n_nodes differ: {a.n_nodes} vs {b.n_nodes}")

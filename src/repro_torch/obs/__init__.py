@@ -1,0 +1,36 @@
+"""repro_torch.obs — the span tracer of ``repro.obs`` (``tracer.py``).
+
+Off by default: the module-level tracer is the no-op ``NULL_TRACER`` until
+``enable_tracing()``; instrumented code always goes through
+``get_tracer()``, so flipping the switch needs no re-plumbing.
+"""
+from __future__ import annotations
+
+from repro_torch.obs.tracer import NULL_TRACER, NullTracer, Span, Tracer
+
+_TRACER: Tracer | NullTracer = NULL_TRACER
+
+
+def get_tracer() -> Tracer | NullTracer:
+    """The process-current tracer. Instrumented code calls this at use
+    time (never caches it), so enabling tracing mid-process takes effect
+    everywhere immediately."""
+    return _TRACER
+
+
+def enable_tracing(tracer: Tracer | None = None) -> Tracer:
+    """Install (and return) a live tracer as the process tracer."""
+    global _TRACER
+    _TRACER = tracer if tracer is not None else Tracer()
+    return _TRACER
+
+
+def disable_tracing() -> None:
+    """Back to the no-op tracer (collected spans are dropped with it
+    unless the caller kept a reference)."""
+    global _TRACER
+    _TRACER = NULL_TRACER
+
+
+__all__ = ["NULL_TRACER", "NullTracer", "Span", "Tracer", "disable_tracing",
+           "enable_tracing", "get_tracer"]

@@ -18,10 +18,24 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import analyze, find_bridges
-from repro_torch.core.api import pad_graph
+from repro_torch.connectivity.common import tour_state
+from repro_torch.connectivity.registry import get_analysis
+from repro_torch.core.api import masked_arrays, pad_graph
 from repro_torch.core.bridges_host import bridges_dfs
+from repro_torch.core.certs import certificate_builder
+from repro_torch.core.merge import (
+    build_distributed_analysis_fn,
+    certify_shards,
+    simulate_merge_host,
+)
+from repro_torch.core.partition import partition_edges
 from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
+from repro_torch.graph.datastructs import (
+    EdgeList,
+    admission_capacity,
+    concat_edges,
+)
 from repro_torch.kernels import cuda_lib, launch_counts, reset_launch_counts
 from repro_torch.kernels.boruvka_round import boruvka_round, frontier_round
 from repro_torch.kernels.boruvka_round.kernel import (
@@ -758,3 +772,118 @@ def test_recsys_steps_on_card_equal_cpu(cuda):
     want = steps["retrieval"](params, seq[:1], seq[:1] != 0, cand)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
                                rtol=1e-5)
+
+
+# ------------------------------------------------- the merge across machines
+def _stacked_shards(s, d, n, m, device, seed=0):
+    """The partition over ``m`` machines, rows padded to their power-of-two
+    bucket as the distributed entry point pads them."""
+    psrc, pdst, pmask = partition_edges(s, d, n, m, seed=seed)
+    cap = admission_capacity(psrc.shape[1], 16)
+    pad = ((0, 0), (0, cap - psrc.shape[1]))
+    return [torch.from_numpy(np.pad(a, pad)).to(device)
+            for a in (psrc, pdst, pmask)]
+
+
+@pytest.mark.parametrize("cert", ["2ec", "sfs", "hybrid"])
+@pytest.mark.parametrize("schedule", ["paper", "xor", "hierarchical"])
+def test_simulated_merge_on_card_equals_cpu(cuda, schedule, cert):
+    """The host simulator with every certificate built on the card, machine
+    by machine, against the same simulator on the CPU, buffer for buffer
+    (n = 3,000, not a power of two; M = 8 on a 2 x 4 grid)."""
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    certify = certificate_builder(cert)
+    merged = {}
+    for dev in ("cpu", cuda):
+        local = certify_shards(*_stacked_shards(s, d, 3000, 8, dev), 3000,
+                               certify=certify)
+        merged[dev] = simulate_merge_host(local, schedule, certify=certify,
+                                          grid=(2, 4))
+    for a, b in zip(merged["cpu"], merged[cuda]):
+        for name in ("src", "dst", "mask"):
+            assert torch.equal(getattr(a, name), getattr(b, name).cpu())
+    c = merged[cuda][0]
+    assert bridges_dfs(*masked_arrays((c.src, c.dst, c.mask)), 3000) == planted
+
+
+def _path_buffers(cuda):
+    """Buffers the distributed path hands the kernels, at n = 3,000: a row
+    of stacked ``[8, cap]`` shards (a view at a nonzero offset), a phase's
+    union of two certificates (2 * 2(n - 1) slots) and one certificate
+    (2(n - 1) = 5,998 slots: not a multiple of four)."""
+    s, d, _ = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    shards = _stacked_shards(s, d, 3000, 8, cuda)
+    row = EdgeList(*(t[5] for t in shards), 3000)
+    certs = certify_shards(*shards, 3000)
+    return {"shard_row": row, "union": concat_edges(certs[0], certs[1]),
+            "certificate": certs[2]}
+
+
+@pytest.mark.parametrize("buffer", ["shard_row", "union", "certificate"])
+def test_connectivity_kernels_on_the_distributed_path_buffers(cuda, buffer):
+    el = _path_buffers(cuda)[buffer]
+    n = el.n_nodes
+    if buffer == "shard_row":
+        assert el.src.storage_offset() > 0
+    if buffer == "certificate":
+        assert el.capacity % 4 == 2
+    valid = el.mask & (el.src != el.dst)
+    ident = torch.arange(n, dtype=torch.int32, device=cuda)
+    labels = [ident, torch.as_tensor(np.random.default_rng(3).integers(
+        0, n, n).astype(np.int32)).to(cuda)]
+    for lab in labels:
+        for m in (valid, el.mask):
+            got = boruvka_round(el.src, el.dst, m, lab, n)
+            assert torch.equal(got, boruvka_round_ref(el.src, el.dst, m, lab,
+                                                      n))
+    rng = np.random.default_rng(4)
+    for p in (0.01, 0.3):
+        frontier = torch.as_tensor(rng.random(n) < p).to(cuda)
+        visited = frontier | torch.as_tensor(rng.random(n) < 0.3).to(cuda)
+        args = (el.src, el.dst, valid, frontier, visited, n)
+        for a, b in zip(frontier_round(*args), frontier_round_ref(*args)):
+            assert torch.equal(a, b)
+    slots = torch.arange(el.capacity, dtype=torch.int32, device=cuda)
+    keys = torch.where(el.mask, slots, INF32)
+    for ids in (el.src, el.dst):
+        assert torch.equal(segment_min(keys, ids, n),
+                           segment_min_ref(keys, ids, n))
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """A one-rank NCCL group (its own file store) and a one-dim mesh."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield DeviceMesh("cuda", torch.arange(1),
+                         mesh_dim_names=("machines",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("final", ["host", "device"])
+def test_one_rank_nccl_program_equals_simulator(nccl_world, final):
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    shards = _stacked_shards(s, d, 3000, 1, "cuda")
+    fn = build_distributed_analysis_fn(nccl_world, ("machines",), 3000,
+                                       final=final)
+    got = fn(*(t[0] for t in shards))
+    cert = simulate_merge_host(certify_shards(*shards, 3000), "paper")[0]
+    if final == "host":
+        want = (cert.src, cert.dst, cert.mask)
+    else:
+        st = tour_state(cert.src, cert.dst, cert.mask, 3000)
+        want = get_analysis("bridges").device_fn(cert.src, cert.dst,
+                                                 cert.mask, 3000, st, 2999)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert find_bridges(s, d, 3000, final=final, mesh=nccl_world) == planted

@@ -16,6 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 #: JAX package would hide there first)
 _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.connectivity.registry", "repro_torch.core.api",
+          "repro_torch.core.partition", "repro_torch.core.merge",
+          "repro_torch.obs", "repro_torch.obs.tracer",
           "repro_torch.configs", "repro_torch.configs.sasrec",
           "repro_torch.data.pipeline", "repro_torch.interop",
           "repro_torch.kernels.embedding_bag.ops",
@@ -49,4 +51,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert "BAD []" in proc.stdout, proc.stdout
     assert "NAMED True" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 45  # every module of the package was imported
+    assert loaded >= 50  # every module of the package was imported
