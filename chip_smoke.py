@@ -71,6 +71,36 @@ Phases, one JSON line each:
              ``find_bridges(..., mesh=...)`` with both finals against the
              planted truth and the program's buffers against the
              simulator's at M = 1 (no phase, so no exchange: counted).
+5c. engine — the engine (``repro_torch.engine.BridgeEngine``) at the same
+             point. The live graph: ``load`` of the Fig. 2 graph (2^24
+             full-buffer slots, the 2ec certificate eager), then 8
+             ``insert_edges`` of 4,096 random edges (each inside one planted
+             blob, so the bridges stay bridges) and 8 ``delete_edges``
+             of 1,024 keys, alternating, the deletions alternately from
+             edges of no live certificate (the free path) and with one 2ec
+             certificate edge and one planted bridge (the rebuild path);
+             after each op ``bridges`` (the op's answer) and ``cuts``
+             (``current_analysis``: the first materializes sfs), once
+             ``cuts`` under ``hybrid``; the whole sequence twice, cold
+             (every answer against the one-shot pipeline run from scratch on
+             the host's copy of the live edge multiset) then warm (the same
+             answers): per op the walls, launches, host syncs, live and
+             peak live bytes, peak device bytes and the certificates
+             rebuilt, and the engine's ``snapshot()``. The batched point:
+             8 planted graphs of 12,500 vertices and 1.25 M edges, each
+             padded to 16,384 vertices and 2^21 slots (the union: 131,072
+             and 2^24), through ``analyze_batch`` and through 8 sequential
+             ``analyze`` calls (``bridges`` with either final, ``cuts``
+             host, ``bridges`` with per-row deletions), every row against
+             its planted truth. The three connectivity kernels bit for bit
+             at the engine's shapes, recorded off the real calls: the warm
+             fold's rounds over the 4,096-slot delta, the rescan folds'
+             rounds over certificate ∪ delta (266,238 slots), the live
+             final's ``segment_min``, the union's first Borůvka round and
+             every SFS round of the batched ``cuts`` query. One-shot
+             ``analyze(delete=)`` twice (the second a cache hit), and
+             ``BridgeEngine(mesh=...)`` on a one-rank NCCL group with
+             ``delete=`` twice against ``simulate_churn_host``.
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode,
@@ -147,9 +177,11 @@ from repro_torch.core.merge import (
     build_distributed_analysis_fn,
     certify_shards,
     merge_phase_plan,
+    simulate_churn_host,
     simulate_merge_host,
 )
 from repro_torch.core.partition import partition_edges
+from repro_torch.engine import BridgeEngine
 from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
 from repro_torch.graph.datastructs import (
@@ -265,6 +297,13 @@ DIST_SCALING = (1, 2, 4, 8)
 #: warm runs of each simulated merge, after one cold run: the line keeps
 #: the median's split (host-bound runs vary between runs)
 DIST_WARM_RUNS = 3
+#: the engine phase: live churn of ENGINE_OPS inserts of ENGINE_INSERT
+#: random edges and ENGINE_OPS deletions of ENGINE_KEYS keys at the Fig. 2
+#: point; the batched point, ENGINE_BATCH planted graphs of BATCH_N
+#: vertices and BATCH_E edges, each padded to 16,384 vertices and 2^21
+#: slots, so that their union is the Fig. 2 point's 131,072 and 2^24
+ENGINE_OPS, ENGINE_INSERT, ENGINE_KEYS = 8, 4096, 1024
+ENGINE_BATCH, BATCH_N, BATCH_E = 8, 12_500, 1_250_000
 #: the run whose launches the kernels line reports, per kernel
 LAUNCHES_FROM = {"boruvka_round": "find_bridges(final='device')",
                  "segment_min": "find_bridges(final='device')",
@@ -1137,21 +1176,51 @@ def path_kernel_checks(buffers: dict) -> list:
     return recs
 
 
+#: where each connectivity kernel's op finds its launch wrapper
+KERNEL_WRAPPERS = {"boruvka_round": (boruvka_ops, "boruvka_round_cuda"),
+                   "frontier_round": (boruvka_ops, "frontier_round_cuda"),
+                   "segment_min": (segment_min_ops, "segment_min_cuda")}
+
+
 @contextlib.contextmanager
-def recording_segment_min(calls: list):
-    """``segment_min``'s inputs (cloned) recorded for the block's duration,
-    the op still launching the kernel."""
-    saved = segment_min_ops.segment_min_cuda
+def recording_kernels(calls: dict, names=tuple(KERNEL_WRAPPERS)):
+    """Each named connectivity kernel's arguments, per call, appended to
+    ``calls[name]`` for the block's duration, the ops still launching the
+    kernels. The tensors are kept, not copied: the pipeline writes none of
+    a kernel's inputs in place after the call."""
+    saved = {name: getattr(*KERNEL_WRAPPERS[name]) for name in names}
 
-    def record(keys, ids, n):
-        calls.append((keys.clone(), ids.clone(), n))
-        return saved(keys, ids, n)
+    def recorder(name):
+        def record(*args):
+            calls.setdefault(name, []).append(args)
+            return saved[name](*args)
+        return record
 
-    segment_min_ops.segment_min_cuda = record
+    for name in names:
+        setattr(*KERNEL_WRAPPERS[name], recorder(name))
     try:
         yield
     finally:
-        segment_min_ops.segment_min_cuda = saved
+        for name, fn in saved.items():
+            setattr(*KERNEL_WRAPPERS[name], fn)
+
+
+@contextlib.contextmanager
+def one_rank_nccl_mesh():
+    """A one-rank NCCL group (its own file store) and a one-dim
+    ``DeviceMesh`` over it, destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            yield DeviceMesh("cuda", torch.arange(1),
+                             mesh_dim_names=("machines",))
+        finally:
+            dist.destroy_process_group()
 
 
 def phase_process_group(src, dst, planted, shards1, sim1) -> dict:
@@ -1161,9 +1230,6 @@ def phase_process_group(src, dst, planted, shards1, sim1) -> dict:
     program's buffers on the M = 1 partition against the simulator's
     machine 0 at M = 1, bit for bit. With one machine the schedule has no
     phase: no exchange happens (counted)."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
-
     exchanges = []
     saved = merge_mod._exchange
 
@@ -1173,14 +1239,9 @@ def phase_process_group(src, dst, planted, shards1, sim1) -> dict:
 
     rec = {"phase": "distributed_process_group", "backend": "nccl",
            "world_size": 1, "phases": len(merge_phase_plan("paper", 1))}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                                rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=300))
+    with one_rank_nccl_mesh() as mesh:
         merge_mod._exchange = counted
         try:
-            mesh = DeviceMesh("cuda", torch.arange(1),
-                              mesh_dim_names=("machines",))
             for final in ("device", "host"):
                 for run in ("cold", "warm"):
                     sync()
@@ -1217,7 +1278,6 @@ def phase_process_group(src, dst, planted, shards1, sim1) -> dict:
                                   a, b) for a, b in zip(out, want))
         finally:
             merge_mod._exchange = saved
-            dist.destroy_process_group()
     t0 = time.perf_counter()
     partition_edges(src, dst, N_NODES, 1, seed=SEED)
     rec["partition_s"] = time.perf_counter() - t0
@@ -1286,14 +1346,15 @@ def phase_distributed(src, dst, truth) -> dict:
     buffers = {}
     for label, el in (("shard_row", row), ("phase_union", union),
                       ("answering_certificate", answering)):
-        calls = []
-        with recording_segment_min(calls):
+        recorded = {}
+        with recording_kernels(recorded, ("segment_min",)):
             if label == "answering_certificate":
                 tour_state(el.src, el.dst, el.mask, N_NODES)
             else:
                 certificate_builder("sfs")(el,
                                            capacity=certificate_capacity(
                                                N_NODES))
+        calls = recorded.get("segment_min", [])
         slots = torch.arange(el.capacity, dtype=INT, device="cuda")
         keys = torch.where(el.mask, slots, INF32)
         calls.append((keys, el.src.contiguous(), N_NODES))
@@ -1305,6 +1366,404 @@ def phase_distributed(src, dst, truth) -> dict:
     phase_process_group(src, dst, truth["bridges"], *sims[1])
     return {name: per_kind for name, per_kind in launches.items()
             if any(per_kind.values())}
+
+
+# ------------------------------------------------------------- the engine
+def pair_keys(src, dst) -> np.ndarray:
+    """One int64 per unordered endpoint pair (ids are non-negative)."""
+    s, d = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    return (np.minimum(s, d) << 32) | np.maximum(s, d)
+
+
+class LiveMirror:
+    """The live edge multiset tracked on the host, independent of the
+    engine: inserts append, a deletion removes every copy of a keyed
+    pair. The oracle's input."""
+
+    def __init__(self, src, dst):
+        self.src, self.dst = np.array(src, np.int32), np.array(dst, np.int32)
+
+    def insert(self, src, dst) -> None:
+        self.src = np.concatenate([self.src, src])
+        self.dst = np.concatenate([self.dst, dst])
+
+    def delete(self, ksrc, kdst) -> None:
+        table = np.unique(pair_keys(ksrc, kdst))
+        keys = pair_keys(self.src, self.dst)
+        at = np.searchsorted(table, keys).clip(max=len(table) - 1)
+        keep = table[at] != keys
+        self.src, self.dst = self.src[keep], self.dst[keep]
+
+
+def certificate_pairs(engine) -> np.ndarray:
+    """The pair keys of every materialized live certificate."""
+    keys = []
+    for state in engine._live.certs.values():
+        if state is not None:
+            s, d = masked_arrays(state[:3])
+            keys.append(pair_keys(s, d))
+    return np.unique(np.concatenate(keys))
+
+
+def random_blob_edges(rng, blobs: np.ndarray, k: int) -> tuple:
+    """``k`` random edges, each between two random vertices of one blob of
+    the planted graph (``blobs``: each vertex's blob, its first vertex), so
+    that inserts keep the planted bridges bridges."""
+    starts, sizes = np.unique(blobs, return_counts=True)
+    b = rng.integers(0, len(starts), k)
+    ds = starts[b] + rng.integers(0, sizes[b])
+    dd = starts[b] + rng.integers(0, sizes[b])
+    return ds.astype(np.int32), dd.astype(np.int32)
+
+
+def churn_inputs(rng, step: int, mirror: LiveMirror, engine, alive: set,
+                 blobs: np.ndarray):
+    """The live sequence's ``step``-th op: even steps insert
+    ``ENGINE_INSERT`` random edges inside the planted blobs; odd steps
+    delete ``ENGINE_KEYS`` keys, alternately from edges of no live
+    certificate (the free path) and random live edges with one 2ec
+    certificate edge and one planted bridge still alive (the rebuild path).
+    Returns (op, path, src, dst)."""
+    if step % 2 == 0:
+        return ("insert", "fold",
+                *random_blob_edges(rng, blobs, ENGINE_INSERT))
+    live = pair_keys(mirror.src, mirror.dst)
+    if step % 4 == 1:
+        free = np.flatnonzero(~np.isin(live, certificate_pairs(engine)))
+        pick = rng.choice(free, ENGINE_KEYS, replace=False)
+        return "delete", "free", mirror.src[pick], mirror.dst[pick]
+    pick = rng.choice(len(live), ENGINE_KEYS - 2, replace=False)
+    cs, cd = masked_arrays(engine._live.certs["2ec"][:3])
+    planted = {pair_keys(*p)[()] for p in alive}
+    j = next(i for i in range(len(cs)) if pair_keys(cs[i], cd[i])[()]
+             not in planted)
+    bridge = sorted(alive)[0]
+    return ("delete", "rebuild",
+            np.concatenate([mirror.src[pick], [cs[j], bridge[0]]]),
+            np.concatenate([mirror.dst[pick], [cd[j], bridge[1]]]))
+
+
+def run_live(src, dst, planted, truth, run: str, check: bool,
+             spans: bool = False) -> dict:
+    """The live graph at the Fig. 2 point: ``load`` into a fresh engine
+    (2^24 full-buffer slots; the 2ec certificate eager), then
+    ``2 * ENGINE_OPS`` ops alternating inserts and deletions
+    (``churn_inputs``), each answered for ``bridges`` (the op's own
+    return) and ``cuts`` (``current_analysis``: the first materializes
+    sfs), and once for ``cuts`` under ``certificate="hybrid"``. Launch
+    counts set to 0 just before each op and read just after. With
+    ``check``, every answer against the one-shot device pipeline run from
+    scratch on the host's copy of the live edge multiset. With ``spans``,
+    each op under a live tracer: its ``stage/*`` spans' seconds. Returns
+    the answers, the launches summed over the run and the engine."""
+    engine = BridgeEngine()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.load(src, dst, N_NODES)
+    sync()
+    load = {"phase": "engine_live", "run": run, "op": "load",
+            "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+            "live_bytes": engine.live_bytes,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    emit(load)
+    total = dict(load["launches"])
+    mirror, alive = LiveMirror(src, dst), set(planted)
+    rng = np.random.default_rng(SEED + 1)
+    answers = []
+    if check:
+        for kind in ("bridges", "cuts"):
+            if not same_answer(kind, analyze(src, dst, N_NODES, kind=kind),
+                               truth[kind]):
+                raise AssertionError(f"the oracle missed the planted {kind}")
+    for step in range(2 * ENGINE_OPS):
+        op, path, s, d = churn_inputs(rng, step, mirror, engine, alive,
+                                      truth["2ecc"])
+        before = engine.live_rebuilds
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        tr = enable_tracing() if spans else None
+        t0 = time.perf_counter()
+        got = {"bridges": (engine.insert_edges(s, d) if op == "insert"
+                           else engine.delete_edges(s, d))}
+        sync()
+        op_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got["cuts"] = engine.current_analysis("cuts")
+        sync()
+        cuts_s = time.perf_counter() - t0
+        rec = {"phase": "engine_live", "run": run, "op": op, "path": path,
+               "step": step, "edges": len(s), "seconds": op_s,
+               "cuts_s": cuts_s}
+        if step == 4:
+            t0 = time.perf_counter()
+            hybrid = engine.current_analysis("cuts", certificate="hybrid")
+            sync()
+            rec["cuts_hybrid_s"] = time.perf_counter() - t0
+            if hybrid != got["cuts"]:
+                raise AssertionError("cuts under hybrid differ from sfs")
+        if spans:
+            disable_tracing()
+            rec["stage_s"] = {name: row["total_s"]
+                              for name, row in tr.rollup().items()
+                              if name.startswith("stage/")}
+        launches = launch_counts()
+        after = engine.live_rebuilds
+        rec.update(
+            launches=launches,
+            host_syncs_in_round_loops=(launches["boruvka_round"]
+                                       + launches["frontier_round"]),
+            delete_readbacks=(1 + len(before)) if op == "delete" else 0,
+            rebuilt=sorted(k for k in after if after[k] != before.get(k, 0)),
+            live_bytes=engine.live_bytes,
+            peak_live_bytes=engine.peak_live_bytes,
+            peak_device_bytes=torch.cuda.max_memory_allocated())
+        for name, count in launches.items():
+            total[name] += count
+        if op == "insert":
+            mirror.insert(s, d)
+        else:
+            mirror.delete(s, d)
+            alive -= {p for p in alive
+                      if np.isin(pair_keys(*p), pair_keys(s, d))}
+            if (path == "free") != (not rec["rebuilt"]):
+                raise AssertionError(f"step {step}: a {path} deletion "
+                                     f"rebuilt {rec['rebuilt']}")
+        if check:
+            for kind in ("bridges", "cuts"):
+                want = analyze(mirror.src, mirror.dst, N_NODES, kind=kind)
+                if not same_answer(kind, got[kind], want):
+                    raise AssertionError(f"engine {kind} after step {step} "
+                                         f"differs from the oracle")
+            rec["oracle"] = "held"
+        rec["bridges"], rec["cuts"] = len(got["bridges"]), len(got["cuts"])
+        answers.append(got)
+        emit(rec)
+    snap = engine.snapshot()
+    emit({"phase": "engine_live_snapshot", "run": run, **snap})
+    return {"answers": answers, "launches": total, "engine": engine,
+            "mirror": mirror}
+
+
+def check_recorded(label: str, calls: dict, select) -> list:
+    """Each recorded connectivity-kernel call that ``select(name, args)``
+    keeps, through the kernel and its plain version, bit for bit; one
+    ``engine_kernel_check`` line per kernel."""
+    plain = {"boruvka_round": boruvka_round_ref,
+             "frontier_round": frontier_round_ref,
+             "segment_min": segment_min_ref}
+    op = {"boruvka_round": boruvka_round, "frontier_round": frontier_round,
+          "segment_min": segment_min}
+    recs = []
+    for name, args_list in calls.items():
+        kept = [args for args in args_list if select(name, args)]
+        if not kept:
+            continue
+        errs, shapes = [], set()
+        for i, args in enumerate(kept):
+            got, want = op[name](*args), plain[name](*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs += [require_equal(f"{label}: {name}[{i}]", a, b)
+                     for a, b in zip(got, want)]
+            shapes.add((args[0].numel(), args[-1]))
+        rec = {"phase": "engine_kernel_check", "name": name, "buffer": label,
+               "calls": len(kept),
+               "shapes": [{"E": e, "n": n} for e, n in sorted(shapes)],
+               "slots_mod_4": sorted({e % 4 for e, _ in shapes}),
+               "max_abs_err": max(errs)}
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def batch_graphs() -> list:
+    """B = ``ENGINE_BATCH`` planted graphs of ``BATCH_N`` vertices and
+    ``BATCH_E`` edges (seeds 0 .. B - 1), with each row's deletion keys: a
+    planted bridge and ``ENGINE_KEYS - 1`` random edges of the row."""
+    rows = []
+    for seed in range(ENGINE_BATCH):
+        s, d, planted = gen.planted_bridge_graph(BATCH_N, BATCH_E, N_BRIDGES,
+                                                 seed=seed)
+        rng = np.random.default_rng(seed)
+        pick = rng.choice(len(s), ENGINE_KEYS - 1, replace=False)
+        bridge = sorted(planted)[seed % N_BRIDGES]
+        keys = (np.concatenate([s[pick], [bridge[1]]]),
+                np.concatenate([d[pick], [bridge[0]]]))
+        rows.append({"src": s, "dst": d, "planted": planted, "keys": keys,
+                     "bridge": bridge})
+    return rows
+
+
+def timed(call, spans: bool = False) -> tuple:
+    """``call()``'s answer and wall seconds, the card synchronised, launch
+    counts set to 0 just before and read just after, peak bytes reset.
+    With ``spans``, under a live tracer: the seconds of each ``stage/*``
+    span summed by name (the spans wait for the card at their ends)."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    tr = enable_tracing() if spans else None
+    try:
+        t0 = time.perf_counter()
+        got = call()
+        sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        if spans:
+            disable_tracing()
+    rec = {"seconds": seconds, "launches": launch_counts(),
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    if spans:
+        rec["stage_s"] = {name: row["total_s"]
+                          for name, row in tr.rollup().items()
+                          if name.startswith("stage/")}
+    return got, rec
+
+
+def run_batched(engine, rows) -> dict:
+    """The B rows through ``analyze_batch`` (one disjoint-union pass:
+    16,384 vertices and 2^21 slots a row, 131,072 and 2^24 in the union)
+    and through B sequential ``engine.analyze`` calls, each cold, warm,
+    then once more under the tracer for its stages' seconds; every row
+    against its planted truth. Returns the warm batched runs'
+    launches per query."""
+    graphs = [(r["src"], r["dst"]) for r in rows]
+    launches = {}
+    for kind, final, delete in (("bridges", "device", False),
+                                ("bridges", "host", False),
+                                ("cuts", "host", False),
+                                ("bridges", "device", True)):
+        dels = [r["keys"] for r in rows] if delete else None
+        rec = {"phase": "engine_batch", "kind": kind, "final": final,
+               "delete": delete, "batch": len(rows), "n": BATCH_N,
+               "row_slots": admission_capacity(BATCH_E, MIN_BUCKET)}
+        for run in ("cold", "warm", "traced"):
+            got, rec[f"batched_{run}"] = timed(lambda: engine.analyze_batch(
+                graphs, BATCH_N, kind=kind, final=final, delete=dels),
+                spans=run == "traced")
+            seq, rec[f"sequential_{run}"] = timed(lambda: [
+                engine.analyze(s, d, BATCH_N, kind=kind, final=final,
+                               delete=dels[i] if delete else None)
+                for i, (s, d) in enumerate(graphs)], spans=run == "traced")
+        for i, r in enumerate(rows):
+            truth = planted_truth(BATCH_N, N_BRIDGES, r["planted"])[kind]
+            if delete:
+                truth = truth - {r["bridge"]}
+            if not (same_answer(kind, got[i], truth)
+                    and same_answer(kind, seq[i], truth)):
+                raise AssertionError(f"analyze_batch {kind}/{final} "
+                                     f"delete={delete}: row {i} missed its "
+                                     f"planted truth")
+        launches[f"{kind}/{final}{'/delete' if delete else ''}"] = \
+            rec["batched_warm"]["launches"]
+        emit(rec)
+    return launches
+
+
+def phase_engine(src, dst, planted, truth, smi: str) -> dict:
+    """The engine on the card (module docstring, phase 5c). Returns each
+    connectivity kernel's launches in the warm live sequence and in the
+    warm batched queries; fails where one of them launched no kernel."""
+    cold = run_live(src, dst, planted, truth, "cold", check=True)
+    del cold["engine"]
+    warm = run_live(src, dst, planted, truth, "warm", check=False)
+    traced = run_live(src, dst, planted, truth, "traced", check=False,
+                      spans=True)
+    del traced["engine"]
+    for step, (a, b, c) in enumerate(zip(cold["answers"], warm["answers"],
+                                         traced["answers"])):
+        if not a == b == c:
+            raise AssertionError(f"a later live run differs at step {step}")
+    # the fold shapes, recorded off one more insert on the warm live graph
+    # (2ec warm fold over the 4,096-slot delta; sfs and hybrid rescans of
+    # certificate ∪ delta) and its bridges final
+    engine = warm["engine"]
+    ds, dd = random_blob_edges(np.random.default_rng(SEED + 2),
+                               truth["2ecc"], ENGINE_INSERT)
+    calls = {}
+    with recording_kernels(calls):
+        engine.insert_edges(ds, dd)
+    n_bucket = engine._live.n_bucket
+    cert_cap = certificate_capacity(n_bucket)
+    check_recorded("warm_fold", calls, lambda name, args: (
+        name == "boruvka_round" and args[0].numel() == ENGINE_INSERT))
+    check_recorded("rescan_fold", calls, lambda name, args: (
+        name == "frontier_round"
+        and args[0].numel() == cert_cap + ENGINE_INSERT))
+    check_recorded("live_insert_and_final", calls, lambda name, args: (
+        name == "segment_min"))
+    del engine, warm["engine"]
+
+    rows = batch_graphs()
+    batch_engine = BridgeEngine()
+    batch_launches = run_batched(batch_engine, rows)
+    calls = {}
+    with recording_kernels(calls, ("boruvka_round", "frontier_round")):
+        batch_engine.analyze_batch([(r["src"], r["dst"]) for r in rows],
+                                   BATCH_N, kind="cuts", final="host")
+    first = calls["boruvka_round"][0]
+    check_recorded("batch_union", {"boruvka_round": [first],
+                                   "frontier_round": calls["frontier_round"]},
+                   lambda name, args: True)
+    if first[0].numel() != ENGINE_BATCH * admission_capacity(BATCH_E,
+                                                             MIN_BUCKET):
+        raise AssertionError("the batched pass did not run on the union")
+    del calls, first, batch_engine
+
+    # one-shot deletion, twice: the second call a cache hit
+    keys = (np.concatenate([src[:ENGINE_KEYS - 1], [sorted(planted)[0][0]]]),
+            np.concatenate([dst[:ENGINE_KEYS - 1], [sorted(planted)[0][1]]]))
+    one_shot = BridgeEngine()
+    rec = {"phase": "engine_one_shot_delete", "keys": ENGINE_KEYS}
+    for run in ("cold", "warm"):
+        got, rec[run] = timed(lambda: one_shot.analyze(src, dst, N_NODES,
+                                                       delete=keys))
+        rec[f"{run}_cache"] = one_shot.cache_info()
+    mirror = LiveMirror(src, dst)
+    mirror.delete(*keys)
+    want = analyze(mirror.src, mirror.dst, N_NODES)
+    if got != want or sorted(planted)[0] in got:
+        raise AssertionError("analyze(delete=) differs from the oracle")
+    if (one_shot.stats.misses, one_shot.stats.hits) != (1, 1):
+        raise AssertionError("the second analyze(delete=) was not a hit")
+    emit(rec)
+    del one_shot
+
+    # the engine's distributed branch on a one-rank NCCL group
+    shards1, _ = stacked_shards(src, dst, 1)
+    shard = EdgeList(*(t[0] for t in shards1), N_NODES)
+    sim = simulate_churn_host([shard], *keys)[0]
+    want = answer(sim, "bridges", "device")
+    rec = {"phase": "engine_process_group", "backend": "nccl",
+           "world_size": 1}
+    with one_rank_nccl_mesh() as mesh:
+        dist_engine = BridgeEngine(mesh=mesh)
+        for run in ("cold", "warm"):
+            got, rec[run] = timed(lambda: dist_engine.analyze(
+                src, dst, N_NODES, seed=SEED, delete=keys))
+            if got != want:
+                raise AssertionError("the engine's distributed branch "
+                                     "differs from simulate_churn_host")
+        rec["cache"] = dist_engine.cache_info()
+        if (dist_engine.stats.misses, dist_engine.stats.hits) != (1, 1):
+            raise AssertionError("the second distributed analyze was not a "
+                                 "hit")
+        del dist_engine
+    emit(rec)
+    del shards1, shard, sim
+
+    launches = {}
+    for name in ("boruvka_round", "frontier_round", "segment_min"):
+        launches[name] = {"live": warm["launches"][name],
+                          "batch": sum(c[name] for c in
+                                       batch_launches.values())}
+        if not (launches[name]["live"] and launches[name]["batch"]):
+            raise AssertionError(f"the engine phase launched no {name}")
+    emit({"phase": "engine", "card": smi, "launches": launches})
+    return launches
 
 
 def right_aligned(seq: np.ndarray) -> np.ndarray:
@@ -1748,6 +2207,7 @@ def main() -> int:
     phase_kernel_paths(src, dst, planted, truth)
     phase_check()
     dist_launches = phase_distributed(src, dst, truth)
+    engine_launches = phase_engine(src, dst, planted, truth, smi)
 
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1784,6 +2244,8 @@ def main() -> int:
             "library_ms": rec["library_ms"],
             **({"launches_distributed": dist_launches[name]}
                if name in dist_launches else {}),
+            **({"launches_engine": engine_launches[name]}
+               if name in engine_launches else {}),
             **({"previous_kernel_ms": rec["previous_kernel_ms"]}
                if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)

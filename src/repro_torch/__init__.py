@@ -13,6 +13,7 @@ from repro_torch.core.api import (
     find_cuts,
     find_two_ecc,
 )
+from repro_torch.engine.engine import analyze_batch, find_bridges_batch
 
-__all__ = ["analyze", "find_bcc", "find_bridge_tree", "find_bridges",
-           "find_cuts", "find_two_ecc"]
+__all__ = ["analyze", "analyze_batch", "find_bcc", "find_bridge_tree",
+           "find_bridges", "find_bridges_batch", "find_cuts", "find_two_ecc"]

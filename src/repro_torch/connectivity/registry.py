@@ -108,6 +108,24 @@ def certificate_fn(certificate: str) -> Callable:
     return get_certificate(certificate).build
 
 
+def resolve_certificate(kind: str, override: str | None = None) -> str:
+    """The certificate serving ``kind``: its declared default, or a
+    per-call ``override``, which must preserve at least what the default
+    does (ValueError otherwise)."""
+    analysis = get_analysis(kind)
+    default = get_certificate(analysis.certificate)
+    if override is None:
+        return default.name
+    cert = get_certificate(override)
+    if not cert.preserves >= default.preserves:
+        raise ValueError(
+            f"certificate {cert.name!r} does not preserve "
+            f"{sorted(default.preserves - cert.preserves)} required "
+            f"by kind {analysis.kind!r} (declared certificate "
+            f"{default.name!r})")
+    return cert.name
+
+
 # ------------------------------------------------------- shared result glue
 def _pair_set(out, n_nodes: int) -> set[tuple[int, int]]:
     s, d, m = (x.cpu().numpy() for x in out)

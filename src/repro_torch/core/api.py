@@ -1,6 +1,7 @@
 """Public API for the paper's algorithm and its failure-point analyses
-(``repro.core.api``, and ``BridgeEngine.analyze`` and its ``find_*``
-methods, single-device and distributed branches).
+(``repro.core.api``): thin wrappers over a shared ``BridgeEngine``
+(``repro_torch.engine``) per configuration, so calls are padded to
+power-of-two shape buckets and served by cached programs.
 
     from repro_torch import analyze, find_bridges
     bridges = find_bridges(src, dst, n_nodes)                  # on the card
@@ -9,19 +10,55 @@ methods, single-device and distributed branches).
     bridges = find_bridges(src, dst, n_nodes, mesh=mesh,       # every rank
                            machine_axes=("data", "model"),
                            schedule="paper", final="host")
+
+Construct a ``BridgeEngine`` of your own for batched dispatch
+(``analyze_batch``) or a live graph (``load``/``insert_edges``/
+``delete_edges``).
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from repro_torch.connectivity.registry import get_analysis
-from repro_torch.core.certs import get_certificate
-from repro_torch.engine.batched import make_analysis_fn
+from repro_torch.connectivity.registry import (  # noqa: F401  (re-export)
+    resolve_certificate,
+)
+from repro_torch.core.merge import mesh_device  # noqa: F401  (re-export)
+from repro_torch.engine.state import masked_arrays  # noqa: F401  (re-export)
 from repro_torch.graph.datastructs import EdgeList, admission_capacity
 
 #: smallest shape bucket, as ``BridgeEngine(min_bucket=16)``
 MIN_BUCKET = 16
+
+# Distributed engines, one per (mesh, axes, schedule, merge, device)
+# configuration, keyed by id(mesh): meshes are long-lived objects in every
+# caller. Bounded: engines pin their mesh and programs, so a process that
+# sweeps over transient meshes must not accumulate them without limit.
+_DIST_ENGINES: dict[tuple, object] = {}
+_DIST_ENGINES_MAX = 8
+
+
+def engine_for(device=None, mesh=None, machine_axes=None,
+               schedule: str = "paper", merge: str = "recertify"):
+    """The shared engine serving this configuration (created on first use):
+    the default engine of ``device`` without a mesh."""
+    # Imported here: the engine builds on core's pipeline stages, so a
+    # module-level import would be circular.
+    from repro_torch.engine.engine import BridgeEngine, get_default_engine
+
+    if mesh is None:
+        return get_default_engine(device)
+    if machine_axes is not None and not isinstance(machine_axes, str):
+        machine_axes = tuple(machine_axes)
+    key = (id(mesh), machine_axes, schedule, merge,
+           None if device is None else str(device))
+    eng = _DIST_ENGINES.get(key)
+    if eng is None:
+        while len(_DIST_ENGINES) >= _DIST_ENGINES_MAX:  # evict oldest
+            _DIST_ENGINES.pop(next(iter(_DIST_ENGINES)))
+        eng = _DIST_ENGINES[key] = BridgeEngine(
+            device=device, mesh=mesh, machine_axes=machine_axes,
+            schedule=schedule, merge=merge)
+    return eng
 
 
 def pad_graph(src, dst, n_nodes: int, device=None) -> EdgeList:
@@ -35,36 +72,12 @@ def pad_graph(src, dst, n_nodes: int, device=None) -> EdgeList:
                                 device=device)
 
 
-def masked_arrays(out):
-    """(src, dst, mask) buffers -> host (src[mask], dst[mask])."""
-    s, d, m = (x.cpu().numpy() for x in out)
-    return s[m], d[m]
-
-
-def resolve_certificate(kind: str, override: str | None = None) -> str:
-    """The certificate serving ``kind``: its declared default, or a
-    per-call ``override``, which must preserve at least what the default
-    does (ValueError otherwise)."""
-    analysis = get_analysis(kind)
-    default = get_certificate(analysis.certificate)
-    if override is None:
-        return default.name
-    cert = get_certificate(override)
-    if not cert.preserves >= default.preserves:
-        raise ValueError(
-            f"certificate {cert.name!r} does not preserve "
-            f"{sorted(default.preserves - cert.preserves)} required "
-            f"by kind {analysis.kind!r} (declared certificate "
-            f"{default.name!r})")
-    return cert.name
-
-
 def analyze(src, dst, n_nodes: int, *, kind: str = "bridges",
             final: str = "device", certificate: str | None = None,
             device=None, mesh=None, machine_axes=None,
             schedule: str = "paper", merge: str = "recertify",
-            seed: int = 0):
-    """One graph, one analysis kind.
+            seed: int = 0, delete=None):
+    """One graph, one analysis kind (``BridgeEngine.analyze``).
 
     kind='bridges'     -> set[(u, v)] bridge pairs
     kind='cuts'        -> set[int] articulation points
@@ -75,9 +88,10 @@ def analyze(src, dst, n_nodes: int, *, kind: str = "bridges",
     ``final='host'`` answers with the kind's sequential host reference run
     on the kind's sparse certificate instead of the device final stage.
     ``certificate`` overrides the kind's declared certificate type with any
-    registered type that preserves what the kind needs. Runs on the card
-    unless ``device`` names another; without a card and without
-    ``device`` it raises.
+    registered type that preserves what the kind needs. ``delete=(ksrc,
+    kdst)`` answers on the graph minus every copy of those endpoint pairs.
+    Runs on the card unless ``device`` names another; without a card and
+    without ``device`` it raises.
 
     With a ``DeviceMesh`` (``mesh``) every rank calls it with the same
     graph and gets the same answer: the edges are partitioned over the
@@ -88,68 +102,9 @@ def analyze(src, dst, n_nodes: int, *, kind: str = "bridges",
     The buffers live on the mesh's device type; a ``device`` of another
     type raises.
     """
-    analysis = get_analysis(kind)
-    cert_name = resolve_certificate(analysis.kind, certificate)
-    if mesh is not None:
-        return _analyze_distributed(src, dst, n_nodes, analysis, final,
-                                    cert_name, device, mesh, machine_axes,
-                                    schedule, merge, seed)
-    el = pad_graph(src, dst, n_nodes, device=device)
-    fn = make_analysis_fn(el.n_nodes, analysis.kind, final,
-                          certificate=cert_name)
-    out = fn(el.src, el.dst, el.mask)
-    if final == "host":
-        return analysis.host_fn(*masked_arrays(out), n_nodes)
-    return analysis.to_result(out, n_nodes)
-
-
-def mesh_device(mesh, device=None) -> torch.device:
-    """The device a mesh's buffers live on: ``device`` if given, which must
-    be of the mesh's device type (ValueError otherwise), else the mesh's
-    type (the current card for a ``cuda`` mesh)."""
-    kind = mesh.device_type
-    if device is None:
-        if kind == "cuda":
-            return torch.device("cuda", torch.cuda.current_device())
-        return torch.device(kind)
-    dev = torch.device(device)
-    if dev.type != kind:
-        raise ValueError(f"device {dev} is not of the mesh's device type "
-                         f"{kind!r}")
-    return dev
-
-
-def _analyze_distributed(src, dst, n_nodes: int, analysis, final: str,
-                         cert_name: str, device, mesh, machine_axes,
-                         schedule: str, merge: str, seed: int):
-    """``BridgeEngine._analyze_distributed`` on this rank: partition with
-    ``seed``, pad the shard capacity (not ``n_nodes``: the distributed path
-    runs at the graph's own n) to its power-of-two bucket, run the
-    program on this rank's row, convert machine 0's result."""
-    from repro_torch.core.merge import (
-        build_distributed_analysis_fn,
-        machine_axes_of,
-        machine_group,
-        result_shard_zero,
-    )
-    from repro_torch.core.partition import partition_edges
-
-    dev = mesh_device(mesh, device)
-    axes = machine_axes_of(mesh, machine_axes)
-    fn = build_distributed_analysis_fn(
-        mesh, axes, n_nodes, schedule=schedule, final=final, merge=merge,
-        kind=analysis.kind, certificate=cert_name)
-    mg = machine_group(mesh, axes)
-    psrc, pdst, pmask = partition_edges(np.asarray(src, np.int32),
-                                        np.asarray(dst, np.int32), n_nodes,
-                                        mg.size, seed=seed)
-    pad = admission_capacity(psrc.shape[1], MIN_BUCKET) - psrc.shape[1]
-    row = [torch.tensor(np.pad(a[mg.index], (0, pad)), device=dev)
-           for a in (psrc, pdst, pmask)]
-    out = result_shard_zero(fn(*row), mesh, axes)
-    if final == "host":
-        return analysis.host_fn(*masked_arrays(out), n_nodes)
-    return analysis.to_result(out, n_nodes)
+    eng = engine_for(device, mesh, machine_axes, schedule, merge)
+    return eng.analyze(src, dst, n_nodes, kind=kind, final=final, seed=seed,
+                       delete=delete, certificate=certificate)
 
 
 def find_bridges(src, dst, n_nodes: int, *, final: str = "host",

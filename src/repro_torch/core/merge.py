@@ -243,6 +243,22 @@ def machine_axes_of(mesh, machine_axes=None) -> tuple:
     return axes
 
 
+def mesh_device(mesh, device=None) -> torch.device:
+    """The device a mesh's buffers live on: ``device`` if given, which must
+    be of the mesh's device type (ValueError otherwise), else the mesh's
+    type (the current card for a ``cuda`` mesh)."""
+    kind = mesh.device_type
+    if device is None:
+        if kind == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(kind)
+    dev = torch.device(device)
+    if dev.type != kind:
+        raise ValueError(f"device {dev} is not of the mesh's device type "
+                         f"{kind!r}")
+    return dev
+
+
 def flattened_ranks(mesh, machine_axes) -> list[list[int]]:
     """Every machine group's global ranks, one list per coordinate of the
     mesh's other dims: ranks row-major over ``machine_axes`` in the order

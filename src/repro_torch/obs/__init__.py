@@ -1,14 +1,23 @@
-"""repro_torch.obs — the span tracer of ``repro.obs`` (``tracer.py``).
+"""repro_torch.obs — the span tracer (``tracer.py``) and the metrics
+registry (``metrics.py``) of ``repro.obs``.
 
-Off by default: the module-level tracer is the no-op ``NULL_TRACER`` until
-``enable_tracing()``; instrumented code always goes through
-``get_tracer()``, so flipping the switch needs no re-plumbing.
+The tracer is off by default: the module-level tracer is the no-op
+``NULL_TRACER`` until ``enable_tracing()``; instrumented code always goes
+through ``get_tracer()``, so flipping the switch needs no re-plumbing.
 """
 from __future__ import annotations
 
+from repro_torch.obs.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    default_latency_buckets,
+)
 from repro_torch.obs.tracer import NULL_TRACER, NullTracer, Span, Tracer
 
 _TRACER: Tracer | NullTracer = NULL_TRACER
+_METRICS = MetricsRegistry()
 
 
 def get_tracer() -> Tracer | NullTracer:
@@ -32,5 +41,17 @@ def disable_tracing() -> None:
     _TRACER = NULL_TRACER
 
 
-__all__ = ["NULL_TRACER", "NullTracer", "Span", "Tracer", "disable_tracing",
-           "enable_tracing", "get_tracer"]
+def get_metrics() -> MetricsRegistry:
+    """The process-global metrics registry (the engine's memory gauges)."""
+    return _METRICS
+
+
+def snapshot() -> dict:
+    """One-call rollup of the global metrics registry."""
+    return _METRICS.snapshot()
+
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACER",
+           "NullTracer", "Span", "Tracer", "default_latency_buckets",
+           "disable_tracing", "enable_tracing", "get_metrics", "get_tracer",
+           "snapshot"]

@@ -887,3 +887,163 @@ def test_one_rank_nccl_program_equals_simulator(nccl_world, final):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert find_bridges(s, d, 3000, final=final, mesh=nccl_world) == planted
+
+
+# ------------------------------------------------------------- the engine
+def _engine_call(engines, method, *args, **kw):
+    """One call on the card's engine and the CPU's, answers equal; then the
+    live buffers slot for slot and the counters."""
+    card, cpu = engines
+    got = getattr(card, method)(*args, **kw)
+    want = getattr(cpu, method)(*args, **kw)
+    if method != "load":
+        if isinstance(want, list):
+            assert all(_same_answer(g, w) for g, w in zip(got, want)), method
+        else:
+            assert _same_answer(got, want), method
+    if cpu._live is not None:
+        for name, state in cpu._live.certs.items():
+            other = card._live.certs[name]
+            assert (state is None) == (other is None), name
+            for a, b in zip(state or (), other or ()):
+                assert torch.equal(a, b.cpu()), name
+        for a, b in zip(cpu._live.full, card._live.full):
+            assert torch.equal(a, b.cpu())
+    snap, card_snap = cpu.snapshot(), card.snapshot()
+    for key in ("programs", "hits", "misses", "traces", "rebuilds",
+                "live_graph_edges", "live_bytes", "peak_live_bytes"):
+        assert card_snap.get(key) == snap.get(key), key
+    return got
+
+
+def _same_answer(a, b):
+    if isinstance(b, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def test_engine_on_card_equals_cpu(cuda):
+    """The live graph (load, inserts, a free deletion, a rebuilding one,
+    the lazy sfs and hybrid certificates), a batched union with per-graph
+    deletions and a one-shot ``delete=``: the engine on the card against
+    the engine on the CPU, answers, live buffers and counters."""
+    from repro_torch.engine import BridgeEngine
+
+    engines = (BridgeEngine(), BridgeEngine(device="cpu"))
+    assert engines[0].device.type == "cuda"
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    _engine_call(engines, "load", s, d, 3000)
+    assert _engine_call(engines, "current_bridges") == planted
+    for kind in ("cuts", "bcc", "2ecc"):
+        _engine_call(engines, "current_analysis", kind)
+    _engine_call(engines, "current_analysis", "cuts", certificate="hybrid")
+    for step in range(2):
+        ds, dd = gen.random_graph(3000, 16, seed=40 + step)
+        _engine_call(engines, "insert_edges", ds, dd, kind="cuts")
+    # free: edges of no certificate; rebuild: a planted bridge
+    cs, cd, cm = (x.cpu().numpy() for x in engines[1]._live.certs["2ec"][:3])
+    cert = set(zip(cs[cm].tolist(), cd[cm].tolist()))
+    free = [(a, b) for a, b in zip(s.tolist(), d.tolist())
+            if (a, b) not in cert and (b, a) not in cert][:16]
+    _engine_call(engines, "delete_edges", *map(np.array, zip(*free)))
+    assert engines[0].live_rebuilds["2ec"] == 0
+    bridge = sorted(planted)[0]
+    _engine_call(engines, "delete_edges", [bridge[0]], [bridge[1]],
+                 kind="bcc", certificate="hybrid")
+    assert engines[0].live_rebuilds["2ec"] == 1
+    graphs = [gen.planted_bridge_graph(700, 9_000, 3, seed=k)[:2]
+              for k in range(3)]
+    dels = [(graphs[0][0][:9], graphs[0][1][:9]), None,
+            (graphs[2][0][::50], graphs[2][1][::50])]
+    for kind, final in (("bridges", "device"), ("cuts", "host"),
+                        ("bcc", "device")):
+        _engine_call(engines, "analyze_batch", graphs, 700, kind=kind,
+                     final=final, delete=dels)
+    for kind in ("bridges", "cuts"):
+        _engine_call(engines, "analyze", s, d, 3000, kind=kind,
+                     delete=(s[:20], d[:20]))
+
+
+def test_engine_batch_is_one_union_pass(cuda):
+    """A batched certificate pass launches each round once for the whole
+    batch: the slowest row's rounds, not the sum over rows."""
+    from repro_torch.core.certificate import sparse_certificate_ex
+    from repro_torch.engine import BatchedEdgeList, make_batched_pipeline
+
+    graphs = [gen.planted_bridge_graph(700, 9_000, 3, seed=k)[:2]
+              for k in range(4)]
+    tb = BatchedEdgeList.from_graphs(graphs, 1024, capacity=16_384)
+    per_row = [sparse_certificate_ex(tb[b])[3] for b in range(4)]
+    reset_launch_counts()
+    make_batched_pipeline(1024, final="host")(tb.src, tb.dst, tb.mask)
+    launched = launch_counts()["boruvka_round"]
+    assert launched == max(r[0] for r in per_row) + max(r[1] for r in per_row)
+    assert launched < sum(sum(r) for r in per_row)
+
+
+def _fold_inputs(cuda, shape):
+    """What the engine's fold programs hand the kernels: the 2ec warm fold
+    scans a 16-slot delta (12 live) against 4,096 vertices with the live
+    certificate's warm labels; the sfs rescan fold a certificate ∪ delta
+    (5,998 + 16 slots at n = 3,000: not a multiple of four)."""
+    from repro_torch.core.certificate import certificate_capacity
+    from repro_torch.core.certs import get_certificate
+
+    n = 4096 if shape == "warm_fold" else 3000
+    s, d, _ = gen.planted_bridge_graph(n, 20 * n, 5, seed=2)
+    ds, dd = gen.random_graph(n, 12, seed=3)
+    delta = EdgeList.from_arrays(ds, dd, n, capacity=16, device=cuda)
+    el = EdgeList.from_arrays(s, d, n, device=cuda)
+    if shape == "warm_fold":
+        state = get_certificate("2ec").load_state(el, certificate_capacity(n))
+        return delta, state[3]
+    cs, cd, cm = get_certificate("sfs").load_state(el,
+                                                   certificate_capacity(n))
+    return concat_edges(EdgeList(cs, cd, cm, n), delta), None
+
+
+@pytest.mark.parametrize("shape", ["warm_fold", "rescan_fold"])
+def test_connectivity_kernels_at_the_engine_fold_shapes(cuda, shape):
+    """The three kernels bit for bit at the engine's fold shapes."""
+    el, warm = _fold_inputs(cuda, shape)
+    src, dst, mask, n = el.src, el.dst, el.mask, el.n_nodes
+    if shape == "rescan_fold":
+        assert el.capacity == 6014 and el.capacity % 4 == 2
+    valid = mask & (src != dst)
+    ident = torch.arange(n, dtype=torch.int32, device=cuda)
+    for labels in (ident,) if warm is None else (warm, ident):
+        assert torch.equal(boruvka_round(src, dst, valid, labels, n),
+                           boruvka_round_ref(src, dst, valid, labels, n))
+    rng = np.random.default_rng(el.capacity)
+    for p in (0.05, 0.5):
+        frontier = torch.as_tensor(rng.random(n) < p).to(cuda)
+        visited = frontier | torch.as_tensor(rng.random(n) < 0.3).to(cuda)
+        args = (src, dst, valid, frontier, visited, n)
+        for a, b in zip(frontier_round(*args), frontier_round_ref(*args)):
+            assert torch.equal(a, b)
+    slots = torch.arange(el.capacity, dtype=torch.int32, device=cuda)
+    keys = torch.where(mask, slots, INF32)
+    for ids in (src, dst):
+        assert torch.equal(segment_min(keys, ids, n),
+                           segment_min_ref(keys, ids, n))
+
+
+def test_one_rank_nccl_engine_deletions_equal_simulator(nccl_world):
+    """``BridgeEngine(mesh=...).analyze(..., delete=...)`` twice on a
+    one-rank NCCL group: the simulator's deletion rule, and the second
+    call a cache hit."""
+    from repro_torch.core.merge import simulate_churn_host
+    from repro_torch.engine import BridgeEngine
+
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    keys = (np.concatenate([s[:30], [sorted(planted)[0][0]]]),
+            np.concatenate([d[:30], [sorted(planted)[0][1]]]))
+    eng = BridgeEngine(mesh=nccl_world)
+    shards = _stacked_shards(s, d, 3000, 1, "cuda")
+    cert = simulate_churn_host([EdgeList(*(t[0] for t in shards), 3000)],
+                               *keys)[0]
+    want = bridges_dfs(*masked_arrays((cert.src, cert.dst, cert.mask)), 3000)
+    for run in range(2):
+        assert eng.analyze(s, d, 3000, final="host", delete=keys) == want
+        assert (eng.stats.misses, eng.stats.hits) == (1, run)
+    assert sorted(planted)[0] not in want

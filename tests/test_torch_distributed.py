@@ -11,7 +11,10 @@ in one world of eight spawned CPU ranks (``tests/torch_dist_world.py``):
   ``shard_map`` program, run in a subprocess;
 * ``find_bridges(..., mesh=...)`` on every rank (``recertify`` and
   ``incremental``) against ``bridges_dfs``; a buffer on a device of
-  another type than the mesh's raises.
+  another type than the mesh's raises;
+* the engine's distributed branch, ``BridgeEngine(mesh=...).analyze`` with
+  ``delete=`` twice on every rank, against ``simulate_churn_host``, the
+  second call a cache hit.
 
 Integer and boolean outputs: tolerance 0.
 """
@@ -166,6 +169,27 @@ def test_deletions_match_simulate_churn_host(world, kind, schedule):
         assert_equal_buffers(rank_buffers(arrays, f"churn/{kind}/{schedule}"),
                              machine_buffers(certs[i], kind, "host"),
                              (kind, schedule, facts["rank"]))
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("kind", ["bridges", "cuts"])
+def test_engine_deletions_match_simulate_churn_host(world, kind, schedule):
+    src, dst, planted = world_mod.graph()
+    ksrc, kdst = world_mod.deletion_keys(src, dst, planted)
+    analysis = get_analysis(kind)
+    certs = tm.simulate_churn_host(_shards(), ksrc, kdst, schedule,
+                                   certify=certificate_builder(
+                                       analysis.certificate), grid=(2, 4))
+    c = certs[0]
+    m = c.mask.numpy()
+    want = sorted(list(x) if isinstance(x, tuple) else x for x in
+                  analysis.host_fn(c.src.numpy()[m], c.dst.numpy()[m], N))
+    assert want
+    for _, facts in world:
+        for call in range(2):
+            got, counts = facts["engine"][f"{kind}/{schedule}/{call}"]
+            assert got == want, (facts["rank"], call)
+            assert counts == [1, call], (facts["rank"], call)
 
 
 @pytest.mark.parametrize("seed", range(3))

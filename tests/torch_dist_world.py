@@ -1,7 +1,8 @@
 """One rank of the gloo world that ``tests/test_torch_distributed.py``
 spawns: eight CPU processes, each running the port's process-group program
-(``repro_torch.core.merge``) and its distributed ``find_*`` entry points on
-the shared cases below, writing what it got to ``<out>/rank<r>.npz`` and
+(``repro_torch.core.merge``), its distributed ``find_*`` entry points and
+the engine's distributed branch (``BridgeEngine(mesh=...)``) on the shared
+cases below, writing what it got to ``<out>/rank<r>.npz`` and
 ``<out>/rank<r>.json``.
 
     python tests/torch_dist_world.py --rank R --world 8 --store FILE --out DIR
@@ -31,6 +32,7 @@ from repro_torch.core.merge import (  # noqa: E402
     machine_group,
 )
 from repro_torch.core.partition import partition_edges  # noqa: E402
+from repro_torch.engine import BridgeEngine  # noqa: E402
 from repro_torch.graph import generators as gen  # noqa: E402
 
 WORLD = 8
@@ -148,6 +150,23 @@ def main() -> int:
                 with_deletions=True)
             for j, t in enumerate(fn(*row(i), *keys)):
                 arrays[f"churn/{kind}/{schedule}/{j}"] = t.numpy()
+
+    # the engine's distributed branch: two calls with the same keys, the
+    # second served by the cached program (misses, hits after each)
+    engine = {}
+    for schedule in SCHEDULES:
+        mesh, axes = mesh_case(schedule, mesh1, mesh2)
+        for kind in ("bridges", "cuts"):
+            eng = BridgeEngine(mesh=mesh, machine_axes=axes,
+                               schedule=schedule)
+            for call in range(2):
+                got = eng.analyze(src, dst, N, kind=kind, final="host",
+                                  seed=PART_SEED, delete=(ksrc, kdst))
+                engine[f"{kind}/{schedule}/{call}"] = [
+                    sorted(list(x) if isinstance(x, tuple) else x
+                           for x in got),
+                    [eng.stats.misses, eng.stats.hits]]
+    facts["engine"] = engine
 
     # the entry points on every rank
     answers = {}
