@@ -101,6 +101,32 @@ Phases, one JSON line each:
              ``analyze(delete=)`` twice (the second a cache hit), and
              ``BridgeEngine(mesh=...)`` on a one-rank NCCL group with
              ``delete=`` twice against ``simulate_churn_host``.
+5d. streaming — streaming ingest at the same point, on one engine, cold
+             then warm: the one-shot ``load`` and every kind (the one-shot
+             live and peak live bytes); ``load_stream`` of the same edges
+             with 2^20-slot chunks, fed in steps of 1,500,000 edges (not a
+             multiple of the bucket), then every kind and ``cuts`` under
+             ``hybrid`` (the lazy certificates replay the ring), each
+             against the planted truth; one ``delete_edges`` of 1,024 keys
+             with a live 2ec certificate edge among them (a ring
+             tombstone, then a replay of each hit certificate) against the
+             host oracle; a second loop of 3,000,000 edges inside the
+             planted blobs that must build no program; every kind again
+             (cold: against the one-shot pipeline on the host's copy of
+             the live edges). Per step: seconds, ingest edges per second,
+             the ``ingest`` counters, live and peak live bytes, launches,
+             round-loop syncs, programs built. The three kernels bit for
+             bit at the chunk shapes, off the warm run's recorded calls.
+5e. streaming_sharded — ``simulate_stream_merge_host`` at M = 8,
+             ``paper``: every shard row streamed through its own 2^20-slot
+             chunks, then the merge levels, for ``bridges`` (``2ec``) and
+             ``cuts`` (``sfs``), cold then warm; machine 0's answer with
+             both finals against the planted truth.
+5f. repairs — ids outside ``[0, n)`` through ``analyze`` with the device
+             final (every kind) and batches with a row outside the
+             batch's bucket through ``analyze_batch`` (every kind x
+             final), each answer against the JAX package's, written in the
+             script (``REPAIR_*``); a device-side assert fails the run.
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode,
@@ -179,6 +205,7 @@ from repro_torch.core.merge import (
     merge_phase_plan,
     simulate_churn_host,
     simulate_merge_host,
+    simulate_stream_merge_host,
 )
 from repro_torch.core.partition import partition_edges
 from repro_torch.engine import BridgeEngine
@@ -1547,10 +1574,11 @@ def run_live(src, dst, planted, truth, run: str, check: bool,
             "mirror": mirror}
 
 
-def check_recorded(label: str, calls: dict, select) -> list:
+def check_recorded(label: str, calls: dict, select,
+                   phase: str = "engine_kernel_check") -> list:
     """Each recorded connectivity-kernel call that ``select(name, args)``
     keeps, through the kernel and its plain version, bit for bit; one
-    ``engine_kernel_check`` line per kernel."""
+    ``phase`` line per kernel."""
     plain = {"boruvka_round": boruvka_round_ref,
              "frontier_round": frontier_round_ref,
              "segment_min": segment_min_ref}
@@ -1569,7 +1597,7 @@ def check_recorded(label: str, calls: dict, select) -> list:
             errs += [require_equal(f"{label}: {name}[{i}]", a, b)
                      for a, b in zip(got, want)]
             shapes.add((args[0].numel(), args[-1]))
-        rec = {"phase": "engine_kernel_check", "name": name, "buffer": label,
+        rec = {"phase": phase, "name": name, "buffer": label,
                "calls": len(kept),
                "shapes": [{"E": e, "n": n} for e, n in sorted(shapes)],
                "slots_mod_4": sorted({e % 4 for e, _ in shapes}),
@@ -1601,7 +1629,9 @@ def timed(call, spans: bool = False) -> tuple:
     """``call()``'s answer and wall seconds, the card synchronised, launch
     counts set to 0 just before and read just after, peak bytes reset.
     With ``spans``, under a live tracer: the seconds of each ``stage/*``
-    span summed by name (the spans wait for the card at their ends)."""
+    span summed by name (the spans wait for the card at their ends), and
+    the seconds outside every outermost stage span (host work that no
+    stage times)."""
     sync()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1620,6 +1650,8 @@ def timed(call, spans: bool = False) -> tuple:
         rec["stage_s"] = {name: row["total_s"]
                           for name, row in tr.rollup().items()
                           if name.startswith("stage/")}
+        rec["outside_stages_s"] = seconds - sum(
+            row["total_s"] for row in tr.stage_rollup().values())
     return got, rec
 
 
@@ -1764,6 +1796,319 @@ def phase_engine(src, dst, planted, truth, smi: str) -> dict:
             raise AssertionError(f"the engine phase launched no {name}")
     emit({"phase": "engine", "card": smi, "launches": launches})
     return launches
+
+
+# ------------------------------------------------------- streaming ingest
+#: the streaming phase: the chunk bucket; the ingest step, not a multiple
+#: of it, so a step splits into a full chunk and a ragged one; the second
+#: ingest loop's edges (inside the planted blobs) and its step
+STREAM_CHUNK, STREAM_STEP = 1 << 20, 1_500_000
+STREAM_SECOND, STREAM_SECOND_STEP = 3_000_000, 1_500_000
+#: recorded kernel calls held against the plain versions, per kernel
+STREAM_CHECK_CALLS = 48
+
+
+def stream_step(engine, rec: dict, label: str, call, spans: bool = False):
+    """``call()`` through ``timed`` (card synchronised, launch counts set to
+    0 just before and read just after); its seconds, launches, round-loop
+    syncs, program-cache misses added, live and peak live bytes and peak
+    device bytes under ``rec[label]``. With ``spans``, under a live tracer
+    (``timed``): each stage's seconds and those outside every stage (host
+    work such as the spill ring's tombstone). Returns the answer."""
+    misses = engine.stats.misses
+    got, step = timed(call, spans=spans)
+    step.update(
+        host_syncs_in_round_loops=(step["launches"]["boruvka_round"]
+                                   + step["launches"]["frontier_round"]),
+        misses_added=engine.stats.misses - misses,
+        live_bytes=engine.live_bytes, peak_live_bytes=engine.peak_live_bytes)
+    rec[label] = step
+    return got
+
+
+def streamed_delete_keys(engine, mirror: LiveMirror, planted: set,
+                         rng) -> tuple:
+    """``ENGINE_KEYS`` deletion keys: one live 2ec certificate edge (so the
+    deletion rebuilds 2ec by ring replay) and random live edges, none of
+    them a planted bridge."""
+    bridges = pair_keys(*np.array(sorted(planted), np.int32).T)
+    cs, cd = masked_arrays(engine._live.certs["2ec"][:3])
+    j = int(np.flatnonzero(~np.isin(pair_keys(cs, cd), bridges))[0])
+    live = np.flatnonzero(~np.isin(pair_keys(mirror.src, mirror.dst),
+                                   bridges))
+    pick = rng.choice(live, ENGINE_KEYS - 1, replace=False)
+    return (np.concatenate([[cs[j]], mirror.src[pick]]).astype(np.int32),
+            np.concatenate([[cd[j]], mirror.dst[pick]]).astype(np.int32))
+
+
+def run_streaming(engine, src, dst, planted, truth, run: str,
+                  check: bool) -> dict:
+    """One streaming run at the Fig. 2 point (module docstring, phase 5d)
+    on ``engine``: the one-shot ``load`` and every kind, then
+    ``load_stream`` of the same edges in ``STREAM_STEP`` steps and every
+    kind (plus ``cuts`` under ``hybrid``), one ring-replaying deletion, a
+    second ingest loop that must add no program, and every kind again.
+    Each answer against the planted truth, the deletion against the host
+    oracle, and, with ``check``, the last answers against the one-shot
+    pipeline on the host's copy of the live edges; without it, the
+    deletion under a live tracer (its stages' seconds). Returns the
+    streamed steps' launches summed."""
+    rec = {"phase": "streaming", "run": run, "edges": len(src),
+           "chunk_edges": STREAM_CHUNK, "step_edges": STREAM_STEP}
+    stream_step(engine, rec, "one_shot_load",
+                lambda: engine.load(src, dst, N_NODES))
+    for kind in analysis_kinds():
+        got = stream_step(engine, rec, f"one_shot_{kind}",
+                          lambda: engine.current_analysis(kind))
+        if not same_answer(kind, got, truth[kind]):
+            raise AssertionError(f"one-shot {kind} missed the planted truth")
+    rec["one_shot_bytes"] = {"live_bytes": engine.live_bytes,
+                             "peak_live_bytes": engine.peak_live_bytes}
+
+    def ingest(s, d, first: bool) -> None:
+        lo = 0
+        if first:
+            engine.load_stream(s[:STREAM_STEP], d[:STREAM_STEP], N_NODES,
+                               chunk_edges=STREAM_CHUNK)
+            lo = STREAM_STEP
+        for lo in range(lo, len(s), STREAM_STEP):
+            engine.ingest_chunk(s[lo:lo + STREAM_STEP],
+                                d[lo:lo + STREAM_STEP])
+
+    streamed = []
+    stream_step(engine, rec, "ingest", lambda: ingest(src, dst, True))
+    streamed.append(rec["ingest"])
+    rec["ingest"].update(edges_per_s=len(src) / rec["ingest"]["seconds"],
+                         counters=engine.snapshot()["ingest"])
+    for kind in analysis_kinds():
+        got = stream_step(engine, rec, f"stream_{kind}",
+                          lambda: engine.current_analysis(kind))
+        streamed.append(rec[f"stream_{kind}"])
+        if not same_answer(kind, got, truth[kind]):
+            raise AssertionError(f"streamed {kind} missed the planted truth")
+    got = stream_step(engine, rec, "stream_cuts_hybrid",
+                      lambda: engine.current_analysis(
+                          "cuts", certificate="hybrid"))
+    streamed.append(rec["stream_cuts_hybrid"])
+    if got != truth["cuts"]:
+        raise AssertionError("streamed cuts under hybrid missed the truth")
+
+    mirror = LiveMirror(src, dst)
+    ks, kd = streamed_delete_keys(engine, mirror, planted,
+                                  np.random.default_rng(SEED + 3))
+    before = engine.live_rebuilds
+    got = stream_step(engine, rec, "delete",
+                      lambda: engine.delete_edges(ks, kd), spans=not check)
+    streamed.append(rec["delete"])
+    after = engine.live_rebuilds
+    rec["delete"].update(
+        keys=ENGINE_KEYS,
+        rebuilt=sorted(k for k in after if after[k] != before.get(k, 0)),
+        readbacks=len(before), counters=engine.snapshot()["ingest"])
+    if "2ec" not in rec["delete"]["rebuilt"]:
+        raise AssertionError("the deletion of a 2ec edge rebuilt no 2ec")
+    mirror.delete(ks, kd)
+    oracle = analyze(mirror.src, mirror.dst, N_NODES, final="host")
+    if got != oracle:
+        raise AssertionError("the streamed deletion differs from the host "
+                             "oracle")
+
+    s2, d2 = random_blob_edges(np.random.default_rng(SEED + 4),
+                               truth["2ecc"], STREAM_SECOND)
+    stream_step(engine, rec, "second_ingest",
+                lambda: ingest(s2, d2, False))
+    streamed.append(rec["second_ingest"])
+    rec["second_ingest"].update(
+        edges_per_s=STREAM_SECOND / rec["second_ingest"]["seconds"],
+        counters=engine.snapshot()["ingest"])
+    mirror.insert(s2, d2)
+    for kind in analysis_kinds():
+        got = stream_step(engine, rec, f"after_{kind}",
+                          lambda: engine.current_analysis(kind))
+        streamed.append(rec[f"after_{kind}"])
+        want = (analyze(mirror.src, mirror.dst, N_NODES, kind=kind)
+                if check else truth[kind])
+        if not same_answer(kind, got, want):
+            raise AssertionError(f"{kind} after the second loop differs "
+                                 f"from the {'oracle' if check else 'truth'}")
+    if rec["second_ingest"]["misses_added"]:
+        raise AssertionError("the second ingest loop built a program")
+    rec["snapshot"] = engine.snapshot()
+    rec["streamed_bytes"] = {"live_bytes": engine.live_bytes,
+                             "peak_live_bytes": engine.peak_live_bytes}
+    if not (rec["streamed_bytes"]["peak_live_bytes"]
+            < rec["one_shot_bytes"]["peak_live_bytes"]):
+        raise AssertionError("the streamed peak is not below the one-shot")
+    launches = {name: sum(step["launches"][name] for step in streamed)
+                for name in KERNEL_WRAPPERS}
+    rec["streamed_launches"] = launches
+    emit(rec)
+    return launches
+
+
+def phase_streaming(src, dst, planted, truth, smi: str) -> dict:
+    """Streaming ingest on the card (module docstring, phase 5d), cold then
+    warm on one engine; then the three kernels bit for bit at the chunk
+    shapes, off the recorded calls of one more ragged ingest, a
+    ring-replaying deletion and a ``bridges`` query on the warm live
+    graph. Returns each kernel's launches in the warm run; fails where it
+    launched no ``boruvka_round``."""
+    engine = BridgeEngine()
+    run_streaming(engine, src, dst, planted, truth, "cold", check=True)
+    launches = run_streaming(engine, src, dst, planted, truth, "warm",
+                             check=False)
+    s3, d3 = random_blob_edges(np.random.default_rng(SEED + 5),
+                               truth["2ecc"], STREAM_STEP)
+    keys = streamed_delete_keys(engine,
+                                LiveMirror(*engine._live.stream.to_numpy()),
+                                planted, np.random.default_rng(SEED + 6))
+    calls = {}
+    with recording_kernels(calls):
+        engine.ingest_chunk(s3, d3)
+        engine.delete_edges(*keys)
+        engine.current_analysis("bridges")
+    cert_cap = certificate_capacity(engine._live.n_bucket)
+    calls = {name: args[:STREAM_CHECK_CALLS] for name, args in calls.items()}
+    checked = [check_recorded(label, calls, select, "streaming_kernel_check")
+               for label, select in (
+        ("chunk_fold", lambda name, args: (
+            name == "boruvka_round" and args[0].numel() == STREAM_CHUNK)),
+        ("chunk_rescan", lambda name, args: (
+            name == "frontier_round"
+            and args[0].numel() == cert_cap + STREAM_CHUNK)),
+        ("chunk_finals", lambda name, args: name == "segment_min"))]
+    if not all(checked):
+        raise AssertionError("a chunk shape was not recorded")
+    del calls, engine
+    if not launches["boruvka_round"]:
+        raise AssertionError("the streaming phase launched no boruvka_round")
+    emit({"phase": "streaming_launches", "card": smi, "launches": launches})
+    return {name: n for name, n in launches.items() if n}
+
+
+def phase_streaming_sharded(src, dst, truth) -> None:
+    """``simulate_stream_merge_host`` at M = ``DIST_MACHINES``, ``paper``:
+    every machine streams its shard row (2^21 slots, about 1.25 M edges)
+    through its own ``STREAM_CHUNK`` chunks, then the merge levels; cold
+    then warm, each with the launch counts set to 0 just before and read
+    just after, under a live tracer; machine 0's answer with both finals
+    against the planted truth."""
+    shards, cap = stacked_shards(src, dst, DIST_MACHINES)
+    rows = [EdgeList(shards[0][i], shards[1][i], shards[2][i], N_NODES)
+            for i in range(DIST_MACHINES)]
+    for kind, cert in DIST_KINDS.items():
+        rec = {"phase": "streaming_sharded", "schedule": "paper",
+               "kind": kind, "certificate": cert,
+               "machines": DIST_MACHINES, "shard_slots": cap}
+        for run in ("cold", "warm"):
+            tr = enable_tracing()
+            try:
+                (merged, streams), rec[run] = timed(
+                    lambda: simulate_stream_merge_host(
+                        rows, STREAM_CHUNK, "paper", certificate=cert))
+            finally:
+                disable_tracing()
+            roll = tr.rollup()
+            rec[run].update(
+                ingest_s=roll["stage/ingest"]["total_s"],
+                levels_s={name: row["total_s"] for name, row in roll.items()
+                          if name.startswith("merge/level")},
+                host_syncs_in_round_loops=(
+                    rec[run]["launches"]["boruvka_round"]
+                    + rec[run]["launches"]["frontier_round"]),
+                chunks=[st.chunks_in for st in streams],
+                folds=[st.folds for st in streams])
+        check_answers(merged, "paper", kind, truth, rec)
+        emit(rec)
+    del shards, rows
+
+
+# ---------------------------------------------------------------- repairs
+#: graphs naming a vertex outside [0, n), and the JAX package's answers to
+#: them (``repro.engine.BridgeEngine``, JAX on the CPU): sets as sorted
+#: lists (a block as its sorted members), 2ecc labels as a list, and the
+#: exception a call raises as its name
+REPAIR_SINGLE = [
+    (([0], [16], 16, "bridges"), []),
+    (([-1], [0], 2, "cuts"), []),
+    (([0], [16], 16, "cuts"), []),
+    (([0], [16], 16, "2ecc"), list(range(15)) + [0]),
+    (([0], [16], 16, "bridge_tree"), []),
+    (([0], [16], 16, "bcc"), [[0, 16]]),
+]
+REPAIR_BATCH = {
+    "path_into_n": ([([0, 1, 16], [1, 2, 3]), ([0, 1, 2], [1, 2, 3])], {
+        ("bridges", "device"): [[(0, 1), (1, 2)], [(0, 1), (1, 2), (2, 3)]],
+        ("bridges", "host"): "IndexError",
+        ("cuts", "device"): [[1], [1, 2]],
+        ("cuts", "host"): [[1], [1, 2]],
+        ("2ecc", "device"): [list(range(15)) + [3], list(range(16))],
+        ("2ecc", "host"): "IndexError",
+        ("bridge_tree", "device"): [[(0, 1), (1, 2)],
+                                    [(0, 1), (1, 2), (2, 3)]],
+        ("bridge_tree", "host"): "IndexError",
+        ("bcc", "device"): [[[0, 1], [1, 2], [3, 16]],
+                            [[0, 1], [1, 2], [2, 3]]],
+        ("bcc", "host"): [[[0, 1], [1, 2]], [[0, 1], [1, 2], [2, 3]]]}),
+    "edge_at_n": ([([16], [0]), ([0], [1])], {
+        ("bridges", "device"): [[], [(0, 1)]],
+        ("bridges", "host"): "IndexError"}),
+    "negative": ([([-1], [0]), ([0], [1])], {
+        ("bridges", "device"): [[], [(0, 1)]],
+        ("bridges", "host"): [[(-1, 0)], [(0, 1)]]}),
+}
+
+
+def plain(x):
+    """An answer in the form of ``REPAIR_*``."""
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, list):
+        return [plain(y) for y in x]
+    if isinstance(x, set) and any(isinstance(y, frozenset) for y in x):
+        return sorted(sorted(b) for b in x)
+    if isinstance(x, set):
+        return sorted(x)
+    return x
+
+
+def phase_repairs(device="cuda") -> dict:
+    """The inputs of the two repaired faults on ``device``, each answer
+    against the JAX package's: ids outside ``[0, n)`` through ``analyze``
+    with the device final (every kind), and batches where one row names a
+    vertex outside the batch's bucket through ``analyze_batch`` (the
+    first, every kind x final). Only the ``IndexError`` the JAX package
+    raises too is caught: a device-side assert fails the run."""
+    checked = 0
+    for (s, d, n, kind), want in REPAIR_SINGLE:
+        got = plain(analyze(s, d, n, kind=kind, final="device",
+                            device=device))
+        if got != want:
+            raise AssertionError(f"analyze({s}, {d}, {n}, kind={kind!r}) "
+                                 f"gave {got}, the JAX package {want}")
+        checked += 1
+    engine = BridgeEngine(device=device)
+    for name, (graphs, answers) in REPAIR_BATCH.items():
+        for (kind, final), want in answers.items():
+            try:
+                got = plain(engine.analyze_batch(graphs, 16, kind=kind,
+                                                 final=final))
+            except IndexError:
+                got = "IndexError"
+            if got != want:
+                raise AssertionError(f"analyze_batch {name} {kind}/{final} "
+                                     f"gave {got}, the JAX package {want}")
+            checked += 1
+    sync_if_card(device)
+    rec = {"phase": "repairs", "device": str(device), "checked": checked,
+           "programs": len(engine._cache)}
+    emit(rec)
+    return rec
+
+
+def sync_if_card(device) -> None:
+    if torch.device(device).type == "cuda":
+        sync()
 
 
 def right_aligned(seq: np.ndarray) -> np.ndarray:
@@ -2208,6 +2553,9 @@ def main() -> int:
     phase_check()
     dist_launches = phase_distributed(src, dst, truth)
     engine_launches = phase_engine(src, dst, planted, truth, smi)
+    stream_launches = phase_streaming(src, dst, planted, truth, smi)
+    phase_streaming_sharded(src, dst, truth)
+    phase_repairs()
 
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2246,6 +2594,8 @@ def main() -> int:
                if name in dist_launches else {}),
             **({"launches_engine": engine_launches[name]}
                if name in engine_launches else {}),
+            **({"launches_streaming": stream_launches[name]}
+               if name in stream_launches else {}),
             **({"previous_kernel_ms": rec["previous_kernel_ms"]}
                if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)

@@ -21,16 +21,24 @@ from repro_torch.graph.datastructs import INF32, INT, INT32_MIN, EdgeList, take
 
 
 def _segment_reduce(values, ids, n: int, reduce: str, identity: int):
-    """``jax.ops.segment_min``/``segment_max`` over in-range ``ids``: empty
-    segments hold the JAX identity (INF32 for min, INT32_MIN for max)."""
-    out = torch.full((n,), identity, dtype=INT, device=values.device)
-    return out.scatter_reduce_(0, ids.long(), values, reduce,
-                               include_self=True)
+    """``jax.ops.segment_min``/``segment_max``: empty segments hold the JAX
+    identity (INF32 for min, INT32_MIN for max), and ids outside ``[0, n)``
+    are dropped — sent to dump segment ``n`` before any indexing (on the
+    card an out-of-range index is a device assert) and sliced off."""
+    out = torch.full((n + 1,), identity, dtype=INT, device=values.device)
+    inside = (ids >= 0) & (ids < n)
+    out.scatter_reduce_(0, torch.where(inside, ids, n).long(), values,
+                        reduce, include_self=True)
+    return out[:n]
 
 
 def _set_drop(size: int, fill: int, idx, values):
-    """``full(size, fill).at[idx].set(values, mode="drop")`` for indices in
-    ``[0, size]``: index ``size`` is the dump slot."""
+    """``full(size, fill).at[idx].set(values, mode="drop")``: an index in
+    ``[-size, -1]`` wraps to ``size + idx`` as JAX's does, every index
+    still outside ``[0, size)`` goes to dump slot ``size`` before any
+    indexing and is sliced off."""
+    idx = torch.where(idx < 0, idx + size, idx)
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
     out = torch.full((size + 1,), fill, dtype=INT, device=values.device)
     out[idx] = values
     return out[:size]

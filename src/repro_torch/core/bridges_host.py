@@ -56,3 +56,9 @@ def bridges_dfs(src: np.ndarray, dst: np.ndarray, n_nodes: int) -> set[tuple[int
                     if low[v] > disc[p]:
                         out.add((min(p, v), max(p, v)))
     return out
+
+
+def bridges_from_edgelist(edges) -> set[tuple[int, int]]:
+    """``bridges_dfs`` of a padded ``EdgeList``'s masked edges."""
+    s, d = edges.to_numpy()
+    return bridges_dfs(s, d, edges.n_nodes)

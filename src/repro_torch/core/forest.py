@@ -12,6 +12,14 @@ Borůvka-style minimum-edge hooking with pointer-doubling contraction:
 
 Both round loops are Python ``while`` loops: reading ``changed`` costs one
 host sync per round, so a forest pass of r rounds syncs r times.
+
+While tracing is on, each pass of ``spanning_forest_ex`` and
+``scan_first_forest_ex`` runs under a ``kernel/forest/<which>`` span
+(``edges``, ``path``, ``rounds``) with one ``kernel/round/<which>`` child per
+round (``round``, ``model_bytes``). The reference runs its rounds inside one
+XLA ``while_loop`` and divides the parent evenly among them; here each
+round ends at its own readback, so each child is timed for real, at no
+extra sync per round.
 """
 from __future__ import annotations
 
@@ -20,8 +28,41 @@ import math
 import torch
 
 from repro_torch.graph.datastructs import INF32, INT, EdgeList, take
-from repro_torch.kernels.boruvka_round.ops import boruvka_round, frontier_round
-from repro_torch.kernels.segment_min.ops import segment_min
+from repro_torch.kernels.boruvka_round.ops import (
+    boruvka_round,
+    boruvka_round_bytes,
+    frontier_round,
+    frontier_round_bytes,
+)
+from repro_torch.kernels.segment_min.ops import kernel_path, segment_min
+from repro_torch.obs import get_tracer
+
+
+def _kernel_span(which: str, edges: EdgeList, impl):
+    """Run a hooking pass ``impl(mark)`` under a ``kernel/forest/<which>``
+    span and attach one ``kernel/round/<which>`` child per round. ``mark``
+    stamps the tracer's clock before the first round and after each
+    round's readback; the children span consecutive stamps and carry the
+    round's byte model (``kernels.boruvka_round.ops``) as ``model_bytes``.
+    Nothing is emitted, and ``mark`` is ``None``, while tracing is off."""
+    tr = get_tracer()
+    if not tr.enabled:
+        return impl(None)
+    e, n = edges.capacity, edges.n_nodes
+    # the byte model's live slots: one readback, made only while tracing
+    live = int((edges.mask & (edges.src != edges.dst)).sum())
+    bytes_fn = (boruvka_round_bytes if which == "boruvka"
+                else frontier_round_bytes)
+    stamps: list[float] = []
+    with tr.span(f"kernel/forest/{which}", edges=e,
+                 path=kernel_path(edges.device)) as sp:
+        out = impl(lambda: stamps.append(tr._clock()))
+        sp.attrs["rounds"] = out[-1]
+        sp.sync(out)
+    for i in range(out[-1]):
+        tr.add(f"kernel/round/{which}", stamps[i], stamps[i + 1] - stamps[i],
+               parent=sp.index, round=i, model_bytes=bytes_fn(e, n, live))
+    return out
 
 
 def _ceil_log2(n: int) -> int:
@@ -61,11 +102,12 @@ def hook_round(src, dst, valid, labels, n: int):
     return parent[labels], chosen, hook
 
 
-def _forest_impl(src, dst, mask, n: int, init_labels=None):
+def _forest_impl(src, dst, mask, n: int, init_labels=None, mark=None):
     """Borůvka hooking. ``init_labels`` warm-starts from an existing
     partition (path-compressed component labels): the returned forest then
-    contains only edges that merge ACROSS the initial components. Returns
-    ``(forest bool[E], labels int32[n], rounds)``."""
+    contains only edges that merge ACROSS the initial components. ``mark``
+    (``_kernel_span``) is called before the first round and after each.
+    Returns ``(forest bool[E], labels int32[n], rounds)``."""
     E = src.shape[0]
     log_n = _ceil_log2(n)
     # Self-loops are never cross edges; masked slots never participate.
@@ -74,11 +116,15 @@ def _forest_impl(src, dst, mask, n: int, init_labels=None):
               if init_labels is None else init_labels.to(INT))
     forest = torch.zeros(E + 1, dtype=torch.bool, device=src.device)
     changed, rounds = True, 0
+    if mark is not None:
+        mark()
     while changed and rounds < log_n + 2:
         labels, chosen, hook = hook_round(src, dst, valid, labels, n)
         forest[chosen] = True  # slot E is the dump slot, sliced off below
         changed = bool(hook.any())  # the round's one host sync
         rounds += 1
+        if mark is not None:
+            mark()
     return forest[:E], labels, rounds
 
 
@@ -98,8 +144,11 @@ def spanning_forest_ex(edges: EdgeList, init_labels=None):
     With ``init_labels`` the forest spans only the *contraction* of the
     initial partition by the edge set (edges internal to an initial
     component are never selected)."""
-    return _forest_impl(edges.src, edges.dst, edges.mask, edges.n_nodes,
-                        init_labels=init_labels)
+    return _kernel_span(
+        "boruvka", edges,
+        lambda mark: _forest_impl(edges.src, edges.dst, edges.mask,
+                                  edges.n_nodes, init_labels=init_labels,
+                                  mark=mark))
 
 
 def connected_components(edges: EdgeList):
@@ -109,7 +158,8 @@ def connected_components(edges: EdgeList):
 
 
 # --------------------------------------------------------- scan-first search
-def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round):
+def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round,
+              mark=None):
     """Level-synchronous frontier hooking: a scan-first-search (BFS-layer)
     spanning forest, rooted at each component's minimum vertex id.
 
@@ -123,8 +173,8 @@ def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round):
     property that makes the F1 ∪ F2 pair a 2-vertex-connectivity
     certificate.
 
-    One round per BFS layer, at most ``n + 1``, one host sync each.
-    Returns (forest bool[E], parent int32[n], level int32[n], root
+    One round per BFS layer, at most ``n + 1``, one host sync each;
+    ``mark`` as in ``_forest_impl``. Returns (forest bool[E], parent int32[n], level int32[n], root
     int32[n], rounds).
     """
     E = src.shape[0]
@@ -141,6 +191,8 @@ def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round):
     parent = vs
     forest = torch.zeros(E + 1, dtype=torch.bool, device=src.device)
     changed, rounds = True, 0
+    if mark is not None:
+        mark()
     while changed and rounds < n + 1:
         best_p, best_e = round_fn(src, dst, valid, frontier, visited, n)
         newly = best_p < INF32
@@ -151,6 +203,8 @@ def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round):
         visited, frontier = visited | newly, newly
         changed = bool(newly.any())  # the round's one host sync
         rounds += 1
+        if mark is not None:
+            mark()
     return forest[:E], parent, level, root, rounds
 
 
@@ -172,4 +226,7 @@ def scan_first_forest_ex(edges: EdgeList):
     ``root_labels[v]`` is the component's canonical minimum vertex id — the
     same partition as ``connected_components``, canonicalized."""
     _, labels, _ = spanning_forest_ex(edges)
-    return _sfs_impl(edges.src, edges.dst, edges.mask, edges.n_nodes, labels)
+    return _kernel_span(
+        "sfs", edges,
+        lambda mark: _sfs_impl(edges.src, edges.dst, edges.mask,
+                               edges.n_nodes, labels, mark=mark))

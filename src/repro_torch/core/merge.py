@@ -42,6 +42,7 @@ from repro_torch.core.certificate import certificate_capacity, sparse_certificat
 from repro_torch.core.certs import get_certificate
 from repro_torch.graph.datastructs import (
     INT,
+    ChunkedEdgeStream,
     EdgeList,
     compact_edges,
     concat_edges,
@@ -212,6 +213,59 @@ def simulate_churn_host(shards, ksrc, kdst, schedule: str = "paper",
                 certify(EdgeList(sh.src, sh.dst, m2, sh.n_nodes),
                         capacity=certificate_capacity(sh.n_nodes))))
     return simulate_merge_host(certs, schedule, certify=certify, grid=grid)
+
+
+def stream_shard_states(shards, chunk_edges: int, certificate: str = "2ec"):
+    """Per-shard STREAMED certificates: shard × chunk composition.
+
+    Each machine's edge shard flows through its own ``ChunkedEdgeStream``
+    and folds chunk by chunk through the registry's ``stream_load``: no
+    machine holds its full shard buffer on the device. Sound by composing
+    the two disjoint-union arguments: within a shard the chunks partition
+    the shard's edges, so the streamed state certifies the shard; across
+    shards the shards partition the graph, so the merge phases apply
+    unchanged.
+
+    Returns ``(certs, streams)``: the per-machine certificate pairs (ready
+    for ``simulate_merge_host``) and the per-machine streams (spill rings
+    and chunk/fold counters). The chunks live on the shards' device.
+    """
+    desc = get_certificate(certificate)
+    certs, streams = [], []
+    tr = get_tracer()
+    for i, sh in enumerate(shards):
+        stream = ChunkedEdgeStream(sh.n_nodes, chunk_edges, device=sh.device)
+        s, d = sh.to_numpy()
+        chunks = stream.admit(s, d)
+        if not chunks:  # edgeless shard: one all-masked chunk fixes n_nodes
+            chunks = [empty_certificate(sh.n_nodes, stream.chunk_bucket,
+                                        device=sh.device)]
+        cap = certificate_capacity(sh.n_nodes)
+        with tr.span("stage/ingest", machine=i, chunks=len(chunks),
+                     chunk_bucket=stream.chunk_bucket) as sp:
+            state = sp.sync(desc.stream_load(chunks, cap))
+        stream.folds += len(chunks)
+        certs.append(EdgeList(state[0], state[1], state[2], sh.n_nodes))
+        streams.append(stream)
+    return certs, streams
+
+
+def simulate_stream_merge_host(shards, chunk_edges: int,
+                               schedule: str = "paper",
+                               certificate: str = "2ec", grid=None):
+    """Host-side sharded streaming drill: every machine streams its own
+    chunk sequence (``stream_shard_states``), then the per-shard results
+    compose through the real merge schedule (``simulate_merge_host``), the
+    multi-machine variant of ``BridgeEngine.load_stream``. Returns
+    ``(merged_certs, streams)``; answering machine as in
+    ``simulate_merge_host``.
+    """
+    desc = get_certificate(certificate)
+    certs, streams = stream_shard_states(shards, chunk_edges,
+                                         certificate=certificate)
+    merged = simulate_merge_host(certs, schedule, certify=desc.build,
+                                 grid=grid)
+    return merged, streams
 
 
 # ------------------------------------------------------ process-group program

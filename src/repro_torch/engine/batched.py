@@ -157,7 +157,14 @@ def union_edges(src, dst, mask, n_nodes: int) -> EdgeList:
     ``B * cap`` slots over ``B * n_nodes`` vertices, row b's ids offset by
     ``b * n_nodes``, slots row-major, masked slots zero. Raises where the
     union exceeds the kernels' int32 key space (``check_key_space``):
-    there is no per-row fallback."""
+    there is no per-row fallback.
+
+    The rows are clean by contract: every endpoint of a masked-in slot lies
+    in ``[0, n_nodes)``, since an id outside would name a vertex of another
+    row once offset. ``BridgeEngine.analyze_batch`` holds the contract by
+    sending such rows through the one-graph program before upload, at no
+    device sync; a range check here, on the device tensors, would cost a
+    sync per batch."""
     b, cap = src.shape
     check_key_space(b * cap, b * n_nodes)
     off = (torch.arange(b, dtype=INT, device=src.device) * n_nodes)[:, None]

@@ -18,22 +18,31 @@ updatable query engine (``repro.engine.engine``).
   ``delete_edges`` serve edge churn from the resident live state, through
   the warm-start fold-in and the certificate-hit rebuild rule, without
   re-running the full pipeline.
+* **streaming** — ``load_stream`` + ``ingest_chunk`` serve graphs whose
+  edge buffer should not live on the device: edges flow through fixed-size
+  chunk buffers folded straight into the live certificates, the full
+  buffer is never built, and peak device memory is O(chunk + certificate).
+  A host spill ring (``ChunkedEdgeStream``) is the tombstone target and
+  the replay source.
 * **observable** — every dispatch sits in a tracer span named for its
   stage (``stage/pad``, ``stage/pipeline/<kind>``,
   ``stage/certificate_build/<name>``, ``stage/merge/<name>``,
-  ``stage/append``, ``stage/tombstone``, ``stage/final/<kind>``,
-  ``stage/convert``) with a device-sync boundary, through ``repro_torch.obs``
-  (off by default). ``snapshot()`` is the one rollup dict.
+  ``stage/ingest``, ``stage/append``, ``stage/tombstone``,
+  ``stage/final/<kind>``, ``stage/convert``) with a device-sync boundary,
+  through ``repro_torch.obs`` (off by default). ``snapshot()`` is the one
+  rollup dict.
 
 Bucketing the vertex count is sound because every stage treats the extra
 vertices as isolated; bucketing the edge capacity because all device code
 is mask-aware.
 
-The scheduler (``submit``/``drain``), streaming ingest (``load_stream``,
-``ingest_chunk``) and checkpoints (``enable_checkpoints``,
-``checkpoint_now``, ``restore_live``) of the reference are not ported yet.
+The scheduler (``submit``/``drain``) and checkpoints
+(``enable_checkpoints``, ``checkpoint_now``, ``restore_live``) of the
+reference are not ported yet.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -68,6 +77,8 @@ from repro_torch.engine.dispatch import (
 )
 from repro_torch.engine.state import EngineStats, LiveState, masked_arrays
 from repro_torch.graph.datastructs import (
+    INT,
+    ChunkedEdgeStream,
     EdgeList,
     admission_capacity,
     resolve_device,
@@ -179,6 +190,13 @@ class BridgeEngine:
             snap["live_graph_edges"] = self._live.count
             snap["live_bytes"] = self._account_live_bytes()
             snap["peak_live_bytes"] = self._peak_live_bytes
+            if self._live.stream is not None:
+                st = self._live.stream
+                snap["ingest"] = {
+                    "chunks": st.chunks_in, "folds": st.folds,
+                    "spilled": st.spilled_edges, "replays": st.replays,
+                    "chunk_bucket": st.chunk_bucket,
+                }
         return snap
 
     def _bucket(self, m: int) -> int:
@@ -228,35 +246,44 @@ class BridgeEngine:
                                              final=final, seed=seed,
                                              delete=delete,
                                              certificate=certificate)
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        with get_tracer().span(f"engine/analyze/{kind}", substrate="single",
+                               final=final):
+            return self._single_pass(
+                src, dst, n_nodes, self._bucket(n_nodes),
+                self._bucket(max(len(src), 1)), analysis, final=final,
+                delete=delete, certificate=certificate)
+
+    def _single_pass(self, src, dst, n_nodes: int, n_bucket: int, cap: int,
+                     analysis, *, final: str, delete, certificate):
+        """One graph through the cached one-graph program of shape bucket
+        ``(n_bucket, cap)``: ``analyze``'s body, and ``analyze_batch``'s
+        path for a row with an id outside ``[0, n_bucket)``."""
+        kind = analysis.kind
         tr = get_tracer()
-        with tr.span(f"engine/analyze/{kind}", substrate="single",
-                     final=final):
-            with tr.span("stage/pad"):
-                src = np.asarray(src, np.int32)
-                dst = np.asarray(dst, np.int32)
-                n_bucket = self._bucket(n_nodes)
-                cap = self._bucket(max(len(src), 1))
-                el = EdgeList.from_arrays(src, dst, n_bucket, capacity=cap,
-                                          device=self.device)
-                args = (el.src, el.dst, el.mask)
-                kcap = None
-                if delete is not None:
-                    kel, kcap = self._delete_keys(delete, n_bucket)
-                    args += (kel.src, kel.dst, kel.mask)
-            cert_name = self._program_certificate(analysis, final, certificate)
-            key = ("single", kind, final, n_bucket, cap, kcap, self.backend,
-                   cert_name)
-            fn = self._program(
-                key, lambda: build_analysis_program(
-                    n_bucket, kind, final, self.stats.count_trace,
-                    with_delete=kcap is not None, certificate=cert_name))
-            with tr.span(f"stage/pipeline/{kind}", n_bucket=n_bucket,
-                         cap=cap, certificate=cert_name) as sp:
-                out = sp.sync(fn(*args))
-            with tr.span("stage/convert"):
-                if final == "host":
-                    return analysis.host_fn(*masked_arrays(out), n_nodes)
-                return analysis.to_result(out, n_nodes)
+        with tr.span("stage/pad"):
+            el = EdgeList.from_arrays(src, dst, n_bucket, capacity=cap,
+                                      device=self.device)
+            args = (el.src, el.dst, el.mask)
+            kcap = None
+            if delete is not None:
+                kel, kcap = self._delete_keys(delete, n_bucket)
+                args += (kel.src, kel.dst, kel.mask)
+        cert_name = self._program_certificate(analysis, final, certificate)
+        key = ("single", kind, final, n_bucket, cap, kcap, self.backend,
+               cert_name)
+        fn = self._program(
+            key, lambda: build_analysis_program(
+                n_bucket, kind, final, self.stats.count_trace,
+                with_delete=kcap is not None, certificate=cert_name))
+        with tr.span(f"stage/pipeline/{kind}", n_bucket=n_bucket,
+                     cap=cap, certificate=cert_name) as sp:
+            out = sp.sync(fn(*args))
+        with tr.span("stage/convert"):
+            if final == "host":
+                return analysis.host_fn(*masked_arrays(out), n_nodes)
+            return analysis.to_result(out, n_nodes)
 
     def find_bridges(self, src, dst, n_nodes: int, *, final: str = "device",
                      seed: int = 0) -> set[tuple[int, int]]:
@@ -296,6 +323,11 @@ class BridgeEngine:
 
         ``certificate``: as in ``analyze``. A batch whose union exceeds the
         kernels' int32 key space raises (``batched.union_edges``).
+
+        A row with an edge endpoint outside ``[0, n_bucket)`` is answered
+        alone by the one-graph program of the batch's shape bucket, as the
+        reference's vmapped row would be: offset into the union, its ids
+        would name vertices of another row.
         """
         analysis = get_analysis(kind)
         kind = analysis.kind
@@ -311,54 +343,85 @@ class BridgeEngine:
         if len(ns) != len(graphs):
             raise ValueError(
                 f"{len(graphs)} graphs but {len(ns)} vertex counts")
+        if delete is not None:
+            delete = list(delete)
+            if len(delete) != len(graphs):
+                raise ValueError(f"{len(graphs)} graphs but "
+                                 f"{len(delete)} deletion lists")
         tr = get_tracer()
         with tr.span(f"engine/analyze_batch/{kind}", substrate="batched",
                      batch=len(graphs), final=final):
-            with tr.span("stage/pad"):
-                n_bucket = self._bucket(max(ns))
-                cap = self._bucket(
-                    max(max((len(s) for s, _ in graphs), default=1), 1))
-                b_bucket = admission_capacity(len(graphs), 1)
-                bel = BatchedEdgeList.from_graphs(graphs, n_bucket,
-                                                  capacity=cap,
-                                                  batch_pad=b_bucket,
-                                                  device=self.device)
-                args = (bel.src, bel.dst, bel.mask)
-                kcap = None
-                if delete is not None:
-                    delete = list(delete)
-                    if len(delete) != len(graphs):
-                        raise ValueError(f"{len(graphs)} graphs but "
-                                         f"{len(delete)} deletion lists")
-                    kcap = self._bucket(
-                        max((len(np.asarray(sd[0])) for sd in delete
-                             if sd is not None), default=0))
-                    args += batch_keys(delete, n_bucket, b_bucket, kcap,
-                                       self.device)
-            cert_name = self._program_certificate(analysis, final, certificate)
-            key = ("batch", kind, final, n_bucket, cap, b_bucket, kcap,
-                   self.backend, cert_name)
-            fn = self._program(
-                key, lambda: build_batched_program(
-                    n_bucket, kind, final, self.stats.count_trace,
-                    with_delete=kcap is not None, certificate=cert_name))
-            with tr.span(f"stage/pipeline/{kind}", n_bucket=n_bucket,
-                         cap=cap, batch=b_bucket,
-                         certificate=cert_name) as sp:
-                out_dev = sp.sync(fn(*args))
-            with tr.span("stage/convert"):
-                stacked = (tuple(x.cpu() for x in out_dev)
-                           if isinstance(out_dev, (tuple, list))
-                           else (out_dev.cpu(),))
-                out = []
-                for i, n in enumerate(ns):
-                    row = tuple(x[i] for x in stacked)
-                    if final == "host":
-                        out.append(analysis.host_fn(*masked_arrays(row), n))
-                    else:
-                        out.append(analysis.to_result(
-                            row if len(row) > 1 else row[0], n))
-                return out
+            n_bucket = self._bucket(max(ns))
+            cap = self._bucket(
+                max(max((len(s) for s, _ in graphs), default=1), 1))
+            # A row naming a vertex outside [0, n_bucket) would name one of
+            # another row once offset into the union: it runs alone through
+            # the one-graph program instead. The graphs are still numpy, so
+            # this costs no device sync.
+            alone = [_out_of_bucket(s, d, n_bucket) for s, d in graphs]
+            union = [i for i, a in enumerate(alone) if not a]
+            rows = (self._union_pass(
+                [graphs[i] for i in union], n_bucket, cap, analysis,
+                final=final, certificate=certificate,
+                delete=None if delete is None else [delete[i] for i in union])
+                if union else None)
+            # rows convert in order, so a row that raises does so where the
+            # reference's would; a run of union rows shares one span
+            out, j = [], 0
+            for is_alone, run in itertools.groupby(range(len(graphs)),
+                                                   alone.__getitem__):
+                if is_alone:
+                    out.extend(self._single_pass(
+                        *graphs[i], ns[i], n_bucket, cap, analysis,
+                        final=final, certificate=certificate,
+                        delete=None if delete is None else delete[i])
+                        for i in run)
+                    continue
+                with tr.span("stage/convert"):
+                    for i in run:
+                        row = tuple(x[j] for x in rows)
+                        j += 1
+                        if final == "host":
+                            out.append(analysis.host_fn(
+                                *masked_arrays(row), ns[i]))
+                        else:
+                            out.append(analysis.to_result(
+                                row if len(row) > 1 else row[0], ns[i]))
+            return out
+
+    def _union_pass(self, graphs, n_bucket: int, cap: int, analysis, *,
+                    final: str, delete, certificate) -> tuple:
+        """Rows whose ids all lie in ``[0, n_bucket)`` through the cached
+        batched program as one disjoint-union pass; returns the stacked
+        outputs on the host, one row per graph."""
+        kind = analysis.kind
+        tr = get_tracer()
+        with tr.span("stage/pad"):
+            b_bucket = admission_capacity(len(graphs), 1)
+            bel = BatchedEdgeList.from_graphs(graphs, n_bucket, capacity=cap,
+                                              batch_pad=b_bucket,
+                                              device=self.device)
+            args = (bel.src, bel.dst, bel.mask)
+            kcap = None
+            if delete is not None:
+                kcap = self._bucket(
+                    max((len(np.asarray(sd[0])) for sd in delete
+                         if sd is not None), default=0))
+                args += batch_keys(delete, n_bucket, b_bucket, kcap,
+                                   self.device)
+        cert_name = self._program_certificate(analysis, final, certificate)
+        key = ("batch", kind, final, n_bucket, cap, b_bucket, kcap,
+               self.backend, cert_name)
+        fn = self._program(
+            key, lambda: build_batched_program(
+                n_bucket, kind, final, self.stats.count_trace,
+                with_delete=kcap is not None, certificate=cert_name))
+        with tr.span(f"stage/pipeline/{kind}", n_bucket=n_bucket, cap=cap,
+                     batch=b_bucket, rows=len(graphs),
+                     certificate=cert_name) as sp:
+            out_dev = sp.sync(fn(*args))
+        return (tuple(x.cpu() for x in out_dev)
+                if isinstance(out_dev, (tuple, list)) else (out_dev.cpu(),))
 
     def find_bridges_batch(self, graphs, n_nodes, *, final: str = "device",
                            ) -> list[set[tuple[int, int]]]:
@@ -411,15 +474,19 @@ class BridgeEngine:
 
     def _materialize(self, name: str) -> tuple:
         """Lazy certificates (``Certificate.lazy``: the scan-first and
-        hybrid pairs) are computed from the live full buffer on the FIRST
-        query that resolves to them, so workloads that never ask never pay
-        their passes. Once live, a state is maintained per delta (and
-        rebuilt when a deletion kills one of its edges)."""
+        hybrid pairs) are computed — from the live full buffer, or,
+        streamed, by spill-ring replay — on the FIRST query that resolves
+        to them, so workloads that never ask never pay their passes. Once
+        live, a state is maintained per delta (and rebuilt when a deletion
+        kills one of its edges)."""
         live = self._live
         state = live.certs.get(name)
         if state is None:
-            state = live.certs[name] = self._cert_load(
-                name, live.n_bucket, live.full)
+            if live.full is None:
+                state = live.certs[name] = self._replay_state(name)
+            else:
+                state = live.certs[name] = self._cert_load(
+                    name, live.n_bucket, live.full)
             live.rebuilds.setdefault(name, 0)
             self._account_live_bytes()
         return state
@@ -453,12 +520,133 @@ class BridgeEngine:
             self._account_live_bytes()
         return self
 
+    # --------------------------------------------------------------- streaming
+    def load_stream(self, src, dst, n_nodes: int, *,
+                    chunk_edges: int = 1024) -> "BridgeEngine":
+        """Set the engine's live graph WITHOUT building its edge buffer:
+        the streaming counterpart of ``load``.
+
+        The initial edges — and every later ``ingest_chunk`` delta — flow
+        through fixed ``chunk_edges``-sized device chunks folded straight
+        into the live certificate states through the registry's
+        ``load_state``/``fold_state`` programs, so peak device memory is
+        O(chunk + certificate) instead of O(E). A host spill ring
+        (``ChunkedEdgeStream``) keeps numpy copies of every chunk: the
+        tombstone target of ``delete_edges`` and the replay source of
+        certificate-hit rebuilds and lazy materialization. All chunks share
+        ONE power-of-two ``chunk_bucket``, so steady-state ingest reuses
+        one cached program per certificate whatever the delta sizes."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "streaming ingest is single-device; shard with "
+                "core.merge.stream_shard_states and merge per-shard results")
+        with get_tracer().span("engine/load_stream", chunk_edges=chunk_edges):
+            n_bucket = self._bucket(n_nodes)
+            stream = ChunkedEdgeStream(n_nodes, chunk_edges,
+                                       minimum=self.min_bucket,
+                                       device=self.device)
+            self._live = LiveState(
+                certs={name: None for name in certificate_names()},
+                rebuilds={}, full=None, count=0, n_nodes=int(n_nodes),
+                n_bucket=n_bucket, stream=stream)
+            self._peak_live_bytes = 0
+            self.ingest_chunk(src, dst)
+        return self
+
+    def ingest_chunk(self, src, dst, *, final: str = "device",
+                     kind: str | None = None, certificate: str | None = None):
+        """Stream an edge delta into the streamed live graph.
+
+        The delta is split into ``chunk_bucket``-padded device chunks, one
+        on the device at a time (``ChunkedEdgeStream.admit_each``, which
+        also spills host copies into the ring), and each chunk folds into
+        every certificate the engine
+        tracks: eager certificates start from the first chunk through the
+        cached ``cert_load`` program and fold the rest through the cached
+        ``cert_insert`` program; lazy certificates wait for the first query
+        that resolves to them (then replay the ring), and fold along once
+        materialized. ``mem/live_bytes`` is updated at every chunk-fold
+        boundary, which makes the O(chunk + certificate) peak observable.
+
+        With ``kind=None`` returns the engine; with a kind, that analysis
+        of the updated live graph."""
+        live = self._live
+        if live is None or live.stream is None:
+            raise RuntimeError(
+                "no streamed live graph: call load_stream() first")
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        with get_tracer().span("stage/ingest", edges=len(src),
+                               chunk_bucket=live.stream.chunk_bucket):
+            for chunk in live.stream.admit_each(src, dst):
+                self._fold_chunk(chunk)
+                self._account_live_bytes()
+            live.count = live.stream.count
+        if kind is None:
+            return self
+        return self.current_analysis(kind=kind, final=final,
+                                     certificate=certificate)
+
+    def _fold_into(self, name: str, state, chunk: EdgeList) -> tuple:
+        """Fold one chunk into ``name``'s state: its cached ``load_state``
+        program where there is no state yet, else its ``cert_insert``
+        program keyed by the chunk bucket."""
+        n_bucket = self._live.n_bucket
+        if state is None:
+            return self._cert_load(name, n_bucket,
+                                   (chunk.src, chunk.dst, chunk.mask))
+        key = ("cert_insert", name, n_bucket, chunk.capacity, self.backend,
+               None)
+        fn = self._program(
+            key, lambda: build_cert_insert_program(name, n_bucket,
+                                                   self.stats.count_trace))
+        with get_tracer().span(f"stage/merge/{name}",
+                               delta=chunk.capacity) as sp:
+            return tuple(sp.sync(fn(*state, chunk.src, chunk.dst,
+                                    chunk.mask)))
+
+    def _fold_chunk(self, chunk: EdgeList) -> None:
+        """Fold ONE admitted chunk into every tracked certificate state
+        (eager ones, and lazy ones already materialized)."""
+        live = self._live
+        for name in list(live.certs):
+            state = live.certs[name]
+            if state is None and get_certificate(name).lazy:
+                continue  # materializes by ring replay on first query
+            live.certs[name] = self._fold_into(name, state, chunk)
+            live.rebuilds.setdefault(name, 0)
+            live.stream.folds += 1
+
+    def _empty_chunk(self) -> EdgeList:
+        """All-masked chunk-bucket buffer: the streamed spelling of an
+        edgeless graph (its shape keeps the cached programs applicable)."""
+        cb = self._live.stream.chunk_bucket
+        z = torch.zeros(cb, dtype=INT, device=self.device)
+        return EdgeList(z, z, torch.zeros(cb, dtype=torch.bool,
+                                          device=self.device),
+                        self._live.n_bucket)
+
+    def _replay_state(self, name: str) -> tuple:
+        """Rebuild ``name``'s live state by replaying the spill ring's
+        surviving chunks (tombstone, then replay). Replay chunks carry the
+        ingest ``chunk_bucket``, so this reuses the cached programs."""
+        live = self._live
+        state = None
+        for chunk in live.stream.replay():
+            state = self._fold_into(name, state, chunk)
+            live.stream.folds += 1
+        if state is None:  # empty ring: certify the edgeless world
+            state = self._fold_into(name, None, self._empty_chunk())
+            live.stream.folds += 1
+        return state
+
     # ---------------------------------------------------------- memory gauges
     def _account_live_bytes(self) -> int:
         """Device bytes of the live state — certificate states plus the
-        full edge buffer — published to the ``mem/live_bytes`` and
-        ``mem/peak_live_bytes`` gauges. Called at load and at every churn
-        boundary (the peak resets on ``load``)."""
+        edge buffer (the full one, or one streamed chunk) — published to
+        the ``mem/live_bytes`` and ``mem/peak_live_bytes`` gauges. Called
+        at load and at every chunk-fold and churn boundary (the peak resets
+        on ``load``/``load_stream``)."""
         live = self._live
         if live is None:
             return 0
@@ -468,8 +656,11 @@ class BridgeEngine:
                 continue
             for x in state:
                 total += x.numel() * x.element_size()
-        for x in live.full:
-            total += x.numel() * x.element_size()
+        if live.full is not None:
+            for x in live.full:
+                total += x.numel() * x.element_size()
+        else:
+            total += live.stream.device_chunk_bytes
         m = get_metrics()
         m.gauge("mem/live_bytes").set(total)
         if total > self._peak_live_bytes:
@@ -484,7 +675,8 @@ class BridgeEngine:
 
     @property
     def peak_live_bytes(self) -> int:
-        """High-water ``live_bytes`` since the last ``load``."""
+        """High-water ``live_bytes`` since the last ``load`` or
+        ``load_stream``."""
         self._account_live_bytes()
         return self._peak_live_bytes
 
@@ -523,10 +715,14 @@ class BridgeEngine:
         labels scan only the delta buffer, the rescan certificates (sfs,
         hybrid) re-certify the bounded cert ∪ delta union. The delta is
         also compact-appended into the resident full buffer, whose output
-        bucket is chosen on the host from the tracked edge count.
+        bucket is chosen on the host from the tracked edge count. On a
+        streamed live graph an insert IS an ingest (``ingest_chunk``).
         """
         kind = normalize_kind(kind)
         live = self._require_live()
+        if live.full is None:
+            return self.ingest_chunk(src, dst, final=final, kind=kind,
+                                     certificate=certificate)
         n_bucket = live.n_bucket
         tr = get_tracer()
         with tr.span("engine/insert_edges", kind=kind):
@@ -583,6 +779,9 @@ class BridgeEngine:
            through its cached ``load_state`` program, and
            ``live_rebuilds`` counts it.
 
+        On a streamed live graph the host spill ring is tombstoned instead
+        of the full buffer, and a hit certificate is rebuilt by ring replay.
+
         The removed count and each certificate's hit count are the only
         host syncs of the delete path: one scalar readback per probed
         buffer.
@@ -598,24 +797,30 @@ class BridgeEngine:
                 "distributed deletion: analyze(..., delete=...))")
         live = self._require_live()
         n_bucket = live.n_bucket
-        with get_tracer().span("engine/delete_edges", kind=kind):
+        with get_tracer().span("engine/delete_edges", kind=kind,
+                               streamed=live.full is None):
             src = np.asarray(src, np.int32)
             dst = np.asarray(dst, np.int32)
             kcap = self._bucket(max(len(src), 1))
             keys = EdgeList.from_arrays(src, dst, n_bucket, capacity=kcap,
                                         device=self.device)
-            fs, fd, fm = live.full
-            fm, removed = self._delete_pass((fs, fd, fm), keys, "full")
-            live.full = (fs, fd, fm)
-            live.count -= int(removed)
+            if live.full is None:
+                live.stream.tombstone(src, dst)
+                live.count = live.stream.count
+            else:
+                fs, fd, fm = live.full
+                fm, removed = self._delete_pass((fs, fd, fm), keys, "full")
+                live.full = (fs, fd, fm)
+                live.count -= int(removed)
             for name, state in live.certs.items():
                 if state is None:
                     continue
                 _, hits = self._delete_pass(state[:3], keys, name)
                 if int(hits):
                     live.rebuilds[name] += 1
-                    live.certs[name] = self._cert_load(name, n_bucket,
-                                                       live.full)
+                    live.certs[name] = (
+                        self._replay_state(name) if live.full is None
+                        else self._cert_load(name, n_bucket, live.full))
             self._account_live_bytes()
             return self.current_analysis(kind=kind, final=final,
                                          certificate=certificate)
@@ -628,7 +833,7 @@ class BridgeEngine:
         resolves to — its declared default, or any registered override that
         preserves what the kind needs (``certificate='hybrid'`` for
         cuts/bcc). The resolved certificate is materialized from the live
-        full buffer on first use.
+        full buffer, or by ring replay, on first use.
         """
         analysis = get_analysis(kind)
         kind = analysis.kind
@@ -702,6 +907,13 @@ class BridgeEngine:
                 if final == "host":
                     return analysis.host_fn(*masked_arrays(out), n_nodes)
                 return analysis.to_result(out, n_nodes)
+
+
+def _out_of_bucket(src: np.ndarray, dst: np.ndarray, n_bucket: int) -> bool:
+    """Whether an edge of the host arrays names a vertex outside
+    ``[0, n_bucket)``."""
+    return bool(len(src)) and (min(src.min(), dst.min()) < 0
+                               or max(src.max(), dst.max()) >= n_bucket)
 
 
 #: the default single-device engine of each device

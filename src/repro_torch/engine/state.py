@@ -97,17 +97,22 @@ class LiveState:
     rebuilds : per-certificate certificate-hit rebuild counters, one entry
                per MATERIALIZED certificate
     full     : the resident (src, dst, mask) full edge buffer — the
-               tombstone target and the rebuild source
+               tombstone target and the rebuild source; ``None`` when
+               streamed
     count    : live edge count (inserts minus deletions), tracked on the
                host so bucket growth is a shape decision with no sync
+    stream   : the ``graph.datastructs.ChunkedEdgeStream`` behind a
+               streamed live graph (chunk bucket, host spill ring, ingest
+               counters); ``None`` after a one-shot ``load``
     """
 
     certs: dict
     rebuilds: dict
-    full: tuple
+    full: tuple | None
     count: int
     n_nodes: int
     n_bucket: int
+    stream: object = None
 
     def __getitem__(self, key: str):
         # dict-style access, as the reference allows (``_live["n_bucket"]``)
@@ -126,7 +131,13 @@ def live_state_tree(live: LiveState) -> dict:
     state slot (lazy certificates not yet materialized are absent: they
     materialize from the restored full buffer on first query),
     ``rebuilds/<name>`` and ``meta/*`` as ints. ``live_state_from_flat``
-    is the inverse of its flattening to ``/``-joined paths."""
+    is the inverse of its flattening to ``/``-joined paths. A streamed
+    live state (``full is None``) has no full buffer to checkpoint: its
+    host spill ring is its recovery log."""
+    if live.full is None:
+        raise ValueError(
+            "streamed live state has no full buffer to checkpoint; replay "
+            "the spill ring instead (ChunkedEdgeStream)")
     return {
         "full": list(live.full),
         "certs": {name: list(state)

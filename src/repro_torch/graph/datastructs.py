@@ -92,6 +92,11 @@ class EdgeList:
             el = pad_edges(el, capacity)
         return el
 
+    def to_numpy(self):
+        """Host copy: (src, dst) of the valid edges only."""
+        m = self.mask.cpu().numpy()
+        return self.src.cpu().numpy()[m], self.dst.cpu().numpy()[m]
+
 
 def pad_edges(edges: EdgeList, capacity: int) -> EdgeList:
     """Grow (or shrink, raising on real edge loss) to `capacity` slots."""
@@ -119,6 +124,10 @@ def admission_capacity(m: int, minimum: int = 16) -> int:
     """Smallest power of two >= max(m, minimum): the shape-bucket helper."""
     m = max(int(m), minimum, 1)
     return 1 << (m - 1).bit_length()
+
+
+#: the reference's older spelling; the same function
+bucket_capacity = admission_capacity
 
 
 def compact_edges(edges: EdgeList, capacity: int,
@@ -195,6 +204,141 @@ def concat_edges(a: EdgeList, b: EdgeList) -> EdgeList:
         torch.cat([a.mask, b.mask]),
         a.n_nodes,
     )
+
+
+class ChunkedEdgeStream:
+    """Streaming-ingest buffers: power-of-two device chunks and a host
+    spill ring (``repro.graph.datastructs.ChunkedEdgeStream``).
+
+    The streaming counterpart of the one-shot full buffer: edges flow
+    through fixed-size chunks on the device and fold into the live
+    certificates chunk by chunk, so peak device memory is
+    O(chunk + certificate) instead of O(E).
+
+    * ``admit(src, dst)`` splits a delta of any size into segments of at
+      most ``chunk_bucket`` edges, each padded to exactly ``chunk_bucket``
+      slots on ``device`` (``admission_capacity``, the engine's one bucket
+      currency), so every chunk of every ingest reuses one cached program
+      per certificate. ``admit_each`` yields them one at a time, the
+      engine's path: a delta of any size then holds one chunk on the
+      device.
+    * the **spill ring**: a numpy copy on the host of every admitted
+      segment, the replay source whenever a live certificate must be
+      rebuilt and there is no full device buffer to rebuild from. No
+      device copy of a past chunk is kept.
+    * ``tombstone(ksrc, kdst)`` removes every ring copy of the keyed
+      unordered endpoint pairs and re-chunks the survivors into full
+      segments, so ``replay()`` stays at ceil(count / chunk) chunks.
+
+    Counters (``chunks_in``/``folds``/``spilled_edges``/``replays``) are
+    deterministic for a fixed ingest sequence.
+    """
+
+    def __init__(self, n_nodes: int, chunk_edges: int = 1024,
+                 minimum: int = 16, device=None):
+        self.n_nodes = int(n_nodes)
+        self.chunk_bucket = admission_capacity(chunk_edges, minimum)
+        self.device = resolve_device(device)
+        self._ring: list[tuple[np.ndarray, np.ndarray]] = []
+        self.count = 0          # live edges (spilled minus tombstoned)
+        self.chunks_in = 0      # device chunks admitted
+        self.folds = 0          # certificate-state load/fold dispatches
+        self.spilled_edges = 0  # edges appended to the host ring
+        self.replays = 0        # full ring replays (rebuilds)
+
+    @property
+    def device_chunk_bytes(self) -> int:
+        """Device bytes of ONE chunk buffer: int32 src + int32 dst + bool
+        mask, the streaming path's whole edge-buffer footprint."""
+        return self.chunk_bucket * (4 + 4 + 1)
+
+    @property
+    def ring_segments(self) -> int:
+        return len(self._ring)
+
+    def _chunk(self, s: np.ndarray, d: np.ndarray) -> EdgeList:
+        """One segment as a ``chunk_bucket``-slot ``EdgeList`` on the
+        device: one host-to-device copy per endpoint array."""
+        cb, k, dev = self.chunk_bucket, len(s), self.device
+        src = torch.zeros(cb, dtype=INT, device=dev)
+        dst = torch.zeros(cb, dtype=INT, device=dev)
+        mask = torch.zeros(cb, dtype=torch.bool, device=dev)
+        src[:k] = torch.from_numpy(np.ascontiguousarray(s))
+        dst[:k] = torch.from_numpy(np.ascontiguousarray(d))
+        mask[:k] = True
+        return EdgeList(src, dst, mask, self.n_nodes)
+
+    def admit(self, src, dst) -> list[EdgeList]:
+        """Split a delta into chunk-bucket-padded device chunks and spill
+        host copies into the ring. Returns the chunks in ingest order."""
+        return list(self.admit_each(src, dst))
+
+    def admit_each(self, src, dst):
+        """``admit`` one chunk at a time: each segment is spilled and
+        uploaded when the caller asks for its chunk, so a delta of any size
+        holds one chunk on the device while the caller folds it."""
+        src = np.asarray(src, np.int32)
+        dst = np.asarray(dst, np.int32)
+        if src.shape != dst.shape:
+            raise ValueError(
+                f"admit: src/dst length mismatch {src.shape} vs {dst.shape}")
+        for lo in range(0, len(src), self.chunk_bucket):
+            s = src[lo:lo + self.chunk_bucket].copy()
+            d = dst[lo:lo + self.chunk_bucket].copy()
+            self._ring.append((s, d))
+            self.spilled_edges += len(s)
+            self.count += len(s)
+            self.chunks_in += 1
+            yield self._chunk(s, d)
+
+    def tombstone(self, ksrc, kdst) -> int:
+        """Remove every ring copy of the keyed unordered pairs; returns the
+        number of edges removed. Survivors keep their order and are
+        re-chunked into full segments, so replay stays ceil(count/chunk).
+
+        The reference builds a Python set of key pairs and walks every
+        ring edge through it; here each pair is one int64 and the ring's
+        keys are looked up in the sorted key array, with the same result."""
+        ks = np.asarray(ksrc, np.int32)
+        kd = np.asarray(kdst, np.int32)
+        if not len(ks) or not self._ring:
+            return 0
+        all_s = np.concatenate([s for s, _ in self._ring])
+        all_d = np.concatenate([d for _, d in self._ring])
+        table = np.unique(_pair_key_np(ks, kd))
+        keys = _pair_key_np(all_s, all_d)
+        at = np.searchsorted(table, keys).clip(max=len(table) - 1)
+        keep = table[at] != keys
+        removed = int((~keep).sum())
+        if removed:
+            all_s, all_d = all_s[keep], all_d[keep]
+            self._ring = [
+                (all_s[i:i + self.chunk_bucket], all_d[i:i + self.chunk_bucket])
+                for i in range(0, len(all_s), self.chunk_bucket)]
+            self.count -= removed
+        return removed
+
+    def replay(self):
+        """Iterate the surviving ring as chunk-bucket-padded ``EdgeList``s
+        on the device: the decremental-rebuild source, in the chunk
+        currency of ``admit``, so a replay reuses the ingest programs."""
+        self.replays += 1
+        for s, d in self._ring:
+            yield self._chunk(s, d)
+
+    def to_numpy(self):
+        """Host copy of every live edge: (src, dst)."""
+        if not self._ring:
+            return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        return (np.concatenate([s for s, _ in self._ring]),
+                np.concatenate([d for _, d in self._ring]))
+
+
+def _pair_key_np(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``_pair_key`` on host arrays: one int64 per unordered pair."""
+    lo = np.minimum(src, dst).astype(np.int64)
+    hi = np.maximum(src, dst).astype(np.int64)
+    return lo * (1 << 32) + (hi & 0xFFFFFFFF)
 
 
 def build_csr(src: np.ndarray, dst: np.ndarray, n_nodes: int):

@@ -1,5 +1,6 @@
-"""repro_torch.obs — the span tracer (``tracer.py``) and the metrics
-registry (``metrics.py``) of ``repro.obs``.
+"""repro_torch.obs — the span tracer (``tracer.py``), the metrics
+registry (``metrics.py``) and the profiler capture (``profile.py``) of
+``repro.obs``.
 
 The tracer is off by default: the module-level tracer is the no-op
 ``NULL_TRACER`` until ``enable_tracing()``; instrumented code always goes
@@ -14,7 +15,14 @@ from repro_torch.obs.metrics import (
     MetricsRegistry,
     default_latency_buckets,
 )
-from repro_torch.obs.tracer import NULL_TRACER, NullTracer, Span, Tracer
+from repro_torch.obs.profile import profiler_trace
+from repro_torch.obs.tracer import (
+    NULL_TRACER,
+    STAGE_PREFIXES,
+    NullTracer,
+    Span,
+    Tracer,
+)
 
 _TRACER: Tracer | NullTracer = NULL_TRACER
 _METRICS = MetricsRegistry()
@@ -52,6 +60,6 @@ def snapshot() -> dict:
 
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACER",
-           "NullTracer", "Span", "Tracer", "default_latency_buckets",
-           "disable_tracing", "enable_tracing", "get_metrics", "get_tracer",
-           "snapshot"]
+           "NullTracer", "STAGE_PREFIXES", "Span", "Tracer",
+           "default_latency_buckets", "disable_tracing", "enable_tracing",
+           "get_metrics", "get_tracer", "profiler_trace", "snapshot"]

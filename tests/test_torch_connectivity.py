@@ -328,3 +328,71 @@ def test_edgelist_interop_for_state_pair():
     for a, b in ((el.src, again.src), (el.dst, again.dst),
                  (el.mask, again.mask)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- ids outside the vertex range
+def outcome(fn):
+    """``("value", answer)`` or ``("raises", exception type)``."""
+    try:
+        return "value", fn()
+    except Exception as exc:  # the reference's exception type is the test
+        return "raises", type(exc)
+
+
+def same_outcome(kind, got, want) -> bool:
+    if got[0] != want[0]:
+        return False
+    return got[1] is want[1] if got[0] == "raises" \
+        else _same(kind, got[1], want[1])
+
+
+#: graphs naming a vertex outside [0, n): JAX's gathers clamp, its
+#: ``.at[].set(mode="drop")`` and ``segment_min/max`` drop
+OUT_OF_RANGE = {
+    "dst_at_n": ([0], [16], 16),
+    "negative_src": ([-1], [0], 2),
+    "src_at_n": ([16], [0], 16),
+    "negative_in_bucket": ([-1], [0], 16),
+    "path_into_n": ([0, 1, 16], [1, 2, 3], 16),
+    "past_n": ([0, 1, 2], [1, 2, 17], 16),
+    "cycle_with_negative": ([0, 1, 2, -3], [1, 2, 3, 0], 16),
+    "far_out": ([0, 1, 2, 100, -40], [1, 2, 0, 3, 1], 16),
+}
+
+
+@pytest.mark.parametrize("final", ["device", "host"])
+@pytest.mark.parametrize("graph", list(OUT_OF_RANGE))
+def test_out_of_range_ids_answer_as_jax(graph, final):
+    """Every kind × valid certificate on ids outside ``[0, n)``: the port
+    answers as ``repro`` does, or raises the same exception type (the
+    host finals' DFS raises ``IndexError`` on an id >= n), and a device
+    final never raises where the reference answers."""
+    src, dst, n = OUT_OF_RANGE[graph]
+    src, dst = np.asarray(src, np.int32), np.asarray(dst, np.int32)
+    for kind, cert in COMBOS:
+        want = outcome(lambda: ENGINE.analyze(src, dst, n, kind=kind,
+                                              final=final, certificate=cert))
+        got = outcome(lambda: analyze(src, dst, n, kind=kind, final=final,
+                                      certificate=cert, device="cpu"))
+        assert same_outcome(kind, got, want), (kind, cert, got, want)
+        if final == "device":
+            assert got[0] == "value", (kind, cert, got)
+
+
+def test_segment_reduce_and_set_drop_follow_jax():
+    """The two scatters of the device final: ids outside ``[0, n)`` drop
+    from ``segment_min``/``segment_max``; ``.at[].set(mode="drop")`` wraps
+    an index in ``[-n, -1]`` and drops the rest."""
+    vals = np.array([5, 1, 7, 3, 9, 2], np.int32)
+    ids = np.array([-1, 0, 4, -5, 2, 2 ** 31 - 1], np.int32)  # no repeat
+    tv, ti = torch.from_numpy(vals), torch.from_numpy(ids)
+    for reduce, jfn, ident in (("amin", jax.ops.segment_min, tcommon.INF32),
+                               ("amax", jax.ops.segment_max,
+                                tcommon.INT32_MIN)):
+        got = tcommon._segment_reduce(tv, ti, 4, reduce, ident)
+        assert np.array_equal(got.numpy(),
+                              np.asarray(jfn(vals, ids, num_segments=4)))
+    want = jax.numpy.full(4, -7, jax.numpy.int32).at[ids].set(
+        vals, mode="drop")
+    got = tcommon._set_drop(4, -7, ti, tv)
+    assert np.array_equal(got.numpy(), np.asarray(want))

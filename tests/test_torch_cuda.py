@@ -12,6 +12,11 @@ them where there is none. On the card:
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch.
 """
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -896,22 +901,30 @@ def _engine_call(engines, method, *args, **kw):
     card, cpu = engines
     got = getattr(card, method)(*args, **kw)
     want = getattr(cpu, method)(*args, **kw)
-    if method != "load":
-        if isinstance(want, list):
-            assert all(_same_answer(g, w) for g, w in zip(got, want)), method
-        else:
-            assert _same_answer(got, want), method
+    if want is cpu:  # load, load_stream, ingest_chunk
+        assert got is card, method
+    elif isinstance(want, list):
+        assert all(_same_answer(g, w) for g, w in zip(got, want)), method
+    else:
+        assert _same_answer(got, want), method
     if cpu._live is not None:
         for name, state in cpu._live.certs.items():
             other = card._live.certs[name]
             assert (state is None) == (other is None), name
             for a, b in zip(state or (), other or ()):
                 assert torch.equal(a, b.cpu()), name
-        for a, b in zip(cpu._live.full, card._live.full):
-            assert torch.equal(a, b.cpu())
+        if cpu._live.full is None:  # streamed: the host spill rings
+            assert card._live.full is None
+            for a, b in zip(cpu._live.stream.to_numpy(),
+                            card._live.stream.to_numpy()):
+                assert np.array_equal(a, b)
+        else:
+            for a, b in zip(cpu._live.full, card._live.full):
+                assert torch.equal(a, b.cpu())
     snap, card_snap = cpu.snapshot(), card.snapshot()
     for key in ("programs", "hits", "misses", "traces", "rebuilds",
-                "live_graph_edges", "live_bytes", "peak_live_bytes"):
+                "live_graph_edges", "live_bytes", "peak_live_bytes",
+                "ingest"):
         assert card_snap.get(key) == snap.get(key), key
     return got
 
@@ -1047,3 +1060,125 @@ def test_one_rank_nccl_engine_deletions_equal_simulator(nccl_world):
         assert eng.analyze(s, d, 3000, final="host", delete=keys) == want
         assert (eng.stats.misses, eng.stats.hits) == (1, run)
     assert sorted(planted)[0] not in want
+
+
+# ------------------------------------------------------- streaming ingest
+def test_streamed_engine_on_card_equals_cpu(cuda):
+    """A streamed live graph (ragged ingest steps, the lazy sfs and hybrid
+    certificates by ring replay, an insert as an ingest, a free deletion
+    and a rebuilding one by replay): the engine on the card against the
+    engine on the CPU, answers, live states, rings and counters."""
+    from repro_torch.engine import BridgeEngine
+
+    engines = (BridgeEngine(), BridgeEngine(device="cpu"))
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    _engine_call(engines, "load_stream", s[:20_000], d[:20_000], 3000,
+                 chunk_edges=4096)
+    steps = range(20_000, len(s), 7_001)
+    for lo in steps:
+        _engine_call(engines, "ingest_chunk", s[lo:lo + 7_001],
+                     d[lo:lo + 7_001])
+    assert engines[0]._live.stream.chunks_in == -(-20_000 // 4096) + sum(
+        -(-len(s[lo:lo + 7_001]) // 4096) for lo in steps)
+    assert _engine_call(engines, "current_bridges") == planted
+    for kind in ("cuts", "bcc", "2ecc", "bridge_tree"):
+        _engine_call(engines, "current_analysis", kind)
+    _engine_call(engines, "current_analysis", "cuts", certificate="hybrid")
+    ds, dd = gen.random_graph(3000, 40, seed=41)
+    _engine_call(engines, "insert_edges", ds, dd, kind="cuts")
+    cs, cd, cm = (x.cpu().numpy() for x in engines[1]._live.certs["2ec"][:3])
+    cert = set(zip(cs[cm].tolist(), cd[cm].tolist()))
+    free = [(a, b) for a, b in zip(s.tolist(), d.tolist())
+            if (a, b) not in cert and (b, a) not in cert][:16]
+    _engine_call(engines, "delete_edges", *map(np.array, zip(*free)))
+    bridge = sorted(planted)[0]
+    _engine_call(engines, "delete_edges", [bridge[0]], [bridge[1]],
+                 kind="bcc", certificate="hybrid")
+    assert engines[0].live_rebuilds["2ec"] == 1
+    assert engines[0].snapshot()["ingest"]["replays"] >= 3
+
+
+def _chunk_inputs(cuda, shape):
+    """What streaming hands the kernels: a ragged 4,096-slot chunk (2,905
+    live) against 4,096 vertices with the live 2ec state's warm labels;
+    the rescan of the sfs state ∪ a chunk (5,998 + 4,096 slots at
+    n = 3,000: not a multiple of four)."""
+    from repro_torch.core.certificate import certificate_capacity
+    from repro_torch.core.certs import get_certificate
+    from repro_torch.graph.datastructs import ChunkedEdgeStream
+
+    n = 4096 if shape == "chunk_fold" else 3000
+    s, d, _ = gen.planted_bridge_graph(n, 20 * n, 5, seed=2)
+    ds, dd = gen.random_graph(n, 2_905, seed=3)
+    chunk, = ChunkedEdgeStream(n, 4096, device=cuda).admit(ds, dd)
+    el = EdgeList.from_arrays(s, d, n, device=cuda)
+    if shape == "chunk_fold":
+        state = get_certificate("2ec").load_state(el, certificate_capacity(n))
+        return chunk, state[3]
+    cs, cd, cm = get_certificate("sfs").load_state(el,
+                                                   certificate_capacity(n))
+    return concat_edges(EdgeList(cs, cd, cm, n), chunk), None
+
+
+@pytest.mark.parametrize("shape", ["chunk_fold", "chunk_rescan"])
+def test_connectivity_kernels_at_the_chunk_shapes(cuda, shape):
+    """The three kernels bit for bit against ``ref.py`` at the chunk
+    shapes."""
+    el, warm = _chunk_inputs(cuda, shape)
+    src, dst, mask, n = el.src, el.dst, el.mask, el.n_nodes
+    assert el.capacity == (4096 if shape == "chunk_fold" else 10_094)
+    valid = mask & (src != dst)
+    ident = torch.arange(n, dtype=torch.int32, device=cuda)
+    for labels in (ident,) if warm is None else (warm, ident):
+        assert torch.equal(boruvka_round(src, dst, valid, labels, n),
+                           boruvka_round_ref(src, dst, valid, labels, n))
+    rng = np.random.default_rng(el.capacity)
+    for p in (0.05, 0.5):
+        frontier = torch.as_tensor(rng.random(n) < p).to(cuda)
+        visited = frontier | torch.as_tensor(rng.random(n) < 0.3).to(cuda)
+        args = (src, dst, valid, frontier, visited, n)
+        for a, b in zip(frontier_round(*args), frontier_round_ref(*args)):
+            assert torch.equal(a, b)
+    slots = torch.arange(el.capacity, dtype=torch.int32, device=cuda)
+    keys = torch.where(mask, slots, INF32)
+    for ids in (src, dst):
+        assert torch.equal(segment_min(keys, ids, n),
+                           segment_min_ref(keys, ids, n))
+
+
+def test_sharded_streaming_on_card_equals_cpu(cuda):
+    """``simulate_stream_merge_host`` with every shard streamed on the card
+    against the same on the CPU, buffer for buffer; machine 0 answers."""
+    from repro_torch.core.merge import simulate_stream_merge_host
+
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=4)
+    for cert in ("2ec", "sfs"):
+        (card, card_streams), (cpu, cpu_streams) = [
+            simulate_stream_merge_host(
+                [EdgeList(*(t[i] for t in shards), 3000) for i in range(4)],
+                4096, certificate=cert)
+            for shards in (_stacked_shards(s, d, 3000, 4, dev)
+                           for dev in (cuda, "cpu"))]
+        for a, b in zip(card, cpu):
+            for x, y in zip((a.src, a.dst, a.mask), (b.src, b.dst, b.mask)):
+                assert torch.equal(x.cpu(), y)
+        assert ([st.folds for st in card_streams]
+                == [st.folds for st in cpu_streams])
+        assert bridges_dfs(*masked_arrays(
+            (card[0].src, card[0].dst, card[0].mask)), 3000) == planted
+
+
+# ---------------------------------------------------------------- repairs
+def test_repairs_on_the_card_in_a_subprocess(cuda):
+    """Ids outside ``[0, n)`` (the device finals) and batches with a row
+    outside the bucket, on the card, in a process of their own: a
+    surviving out-of-range index would be a device-side assert there, and
+    would end only that process's CUDA context. The answers are
+    ``chip_smoke.REPAIR_*``, the JAX package's."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.phase_repairs()"],
+        capture_output=True, text=True, cwd=root, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["device"] == "cuda" and rec["checked"] == 20

@@ -406,3 +406,83 @@ def test_rows_of_one_batch_equal_their_single_graph_answers():
     got = PAIR.torch.analyze_batch(graphs, ns, kind="bridges")
     for (s, d), n, g in zip(graphs, ns, got):
         assert same(g, PAIR.torch.find_bridges(s, d, n))
+
+
+# ------------------------------------------- rows with ids out of the bucket
+def _outcome(fn):
+    """``("value", answer)`` or ``("raises", exception type)``."""
+    try:
+        return "value", fn()
+    except Exception as exc:  # the reference's exception type is the test
+        return "raises", type(exc)
+
+
+#: batches at n = 16 (bucket 16) where a row names a vertex outside
+#: [0, 16): offset into the union it would name a vertex of another row
+DIRTY_BATCHES = {
+    "path_into_n": [([0, 1, 16], [1, 2, 3]), ([0, 1, 2], [1, 2, 3])],
+    "edge_at_n": [([16], [0]), ([0], [1])],
+    "negative": [([-1], [0]), ([0], [1])],
+    "last_row": [([0], [1]), ([16], [0])],
+    "mixed": [([0, 1], [1, 2]), ([-1, 3], [2, 4]), ([5], [6]),
+              ([40], [2]), ([0, 2], [1, 0])],
+}
+#: the rows of each batch that the union carries
+UNION_ROWS = {"path_into_n": 1, "edge_at_n": 1, "negative": 1,
+              "last_row": 1, "mixed": 3}
+C3_PAIR = EnginePair()
+
+
+@pytest.mark.parametrize("final", ["device", "host"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", list(DIRTY_BATCHES))
+def test_batch_rows_out_of_the_bucket_answer_alone(name, kind, final):
+    """Every row answers as the reference's vmapped row does, or the call
+    raises the reference's exception type; the union carries only the
+    clean rows, and no row changes another's answer."""
+    from repro_torch import obs
+
+    graphs = [(np.asarray(s, np.int32), np.asarray(d, np.int32))
+              for s, d in DIRTY_BATCHES[name]]
+    want = _outcome(lambda: C3_PAIR.jax.analyze_batch(graphs, 16, kind=kind,
+                                                      final=final))
+    tr = obs.enable_tracing()
+    try:
+        got = _outcome(lambda: C3_PAIR.torch.analyze_batch(
+            graphs, 16, kind=kind, final=final))
+    finally:
+        obs.disable_tracing()
+    assert got[0] == want[0], (got, want)
+    if want[0] == "raises":
+        assert got[1] is want[1]
+    else:
+        assert same(got[1], want[1]), (got[1], want[1])
+    union = [s["attrs"]["rows"] for s in tr.spans()
+             if s["name"] == f"stage/pipeline/{kind}"
+             and "rows" in s["attrs"]]
+    assert union == [UNION_ROWS[name]]
+    if final == "device":
+        assert got[0] == "value"
+
+
+def test_clean_rows_of_a_dirty_batch_equal_their_single_answers():
+    graphs = DIRTY_BATCHES["path_into_n"]
+    got = C3_PAIR.torch.analyze_batch(graphs, 16, kind="bridges")
+    assert got[1] == C3_PAIR.torch.find_bridges(*graphs[1], 16) \
+        == {(0, 1), (1, 2), (2, 3)}
+
+
+def test_dirty_rows_keep_their_deletion_keys():
+    """A row answered alone keeps its own deletion keys. (The program
+    counters differ from the reference's here by design: the row runs
+    through a one-graph program beside the union's.)"""
+    graphs = [([0, 1, 2, 16], [1, 2, 0, 3]), ([0, 1, 2], [1, 2, 0])]
+    delete = [([1], [2]), ([0], [1])]
+    for kind in ("bridges", "cuts"):
+        got = C3_PAIR.torch.analyze_batch(graphs, 16, kind=kind,
+                                          delete=delete)
+        assert got == C3_PAIR.jax.analyze_batch(graphs, 16, kind=kind,
+                                                delete=delete)
+        assert got == [C3_PAIR.torch.analyze(s, d, 16, kind=kind,
+                                             delete=k)
+                       for (s, d), k in zip(graphs, delete)]

@@ -266,8 +266,9 @@ def test_distributed_kind_matches_single_device_all_schedules(kind):
 
 # ------------------------------------------------------------------- spans
 def _recorded(tracer):
-    """The merge's spans: the reference also records per-round forest
-    spans (``kernel/forest/*``), which the port does not have yet."""
+    """The merge's spans. The per-round forest spans (``kernel/forest/*``)
+    nested in them carry each package's own path and byte model, and
+    ``tests/test_torch_obs.py`` holds them against the reference."""
     return [(s["name"], s["depth"], s["attrs"]) for s in tracer.spans()
             if s["name"].startswith("merge/")]
 

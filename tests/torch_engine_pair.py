@@ -3,8 +3,10 @@
 
 ``EnginePair.call`` runs a method on both with the same numpy inputs and
 holds the answers equal; after every call the live state (every
-materialized certificate state slot for slot, the full buffer) and the
-``snapshot()`` counters are held equal too. Tolerance: exact equality
+materialized certificate state slot for slot, and the full buffer, or,
+when the live graph is streamed, the host spill ring segment for segment)
+and the ``snapshot()`` counters, ``ingest`` among them, are held equal
+too. Tolerance: exact equality
 (every output is an integer, a boolean or a set of them).
 """
 import numpy as np
@@ -15,7 +17,7 @@ from repro_torch.engine import BridgeEngine as TorchEngine
 #: the counters of ``snapshot()`` the two engines must agree on
 SNAPSHOT_KEYS = ("programs", "hits", "misses", "traces", "rebuilds",
                  "rebuilds_total", "live_graph_edges", "live_bytes",
-                 "peak_live_bytes")
+                 "peak_live_bytes", "ingest")
 
 
 def same(got, want) -> bool:
@@ -41,6 +43,18 @@ def assert_buffers_equal(got, want, what: str) -> None:
         assert np.array_equal(g, w), (what, i)
 
 
+def assert_rings_equal(got, want) -> None:
+    """Two ``ChunkedEdgeStream``s: the same spill ring segment for segment
+    (dtype and value), and the same counters."""
+    assert got.ring_segments == want.ring_segments
+    for (gs, gd), (ws, wd) in zip(got._ring, want._ring):
+        for g, w in ((gs, ws), (gd, wd)):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+    for key in ("n_nodes", "chunk_bucket", "count", "chunks_in", "folds",
+                "spilled_edges", "replays", "device_chunk_bytes"):
+        assert getattr(got, key) == getattr(want, key), key
+
+
 class EnginePair:
     """The two engines, built with the same keywords."""
 
@@ -51,7 +65,9 @@ class EnginePair:
     def call(self, method: str, *args, **kw):
         want = getattr(self.jax, method)(*args, **kw)
         got = getattr(self.torch, method)(*args, **kw)
-        if method != "load":
+        if isinstance(want, JaxEngine):  # load, load_stream, ingest_chunk
+            assert got is self.torch, method
+        else:
             assert same(got, want), (method, got, want)
         self.check_state()
         return got
@@ -67,7 +83,11 @@ class EnginePair:
                 assert (state is None) == (tl.certs[name] is None), name
                 if state is not None:
                     assert_buffers_equal(tl.certs[name], state, name)
-            assert_buffers_equal(tl.full, jl.full, "full")
+            assert (jl.full is None) == (tl.full is None)
+            if jl.full is None:
+                assert_rings_equal(tl.stream, jl.stream)
+            else:
+                assert_buffers_equal(tl.full, jl.full, "full")
             assert tl.rebuilds == jl.rebuilds
         js, ts = self.jax.snapshot(), self.torch.snapshot()
         for key in SNAPSHOT_KEYS:
