@@ -127,6 +127,49 @@ Phases, one JSON line each:
              batch's bucket through ``analyze_batch`` (every kind x
              final), each answer against the JAX package's, written in the
              script (``REPAIR_*``); a device-side assert fails the run.
+5g. scheduler — ``benchmarks/fig10_serving.py``'s fixed submission script
+             through ``BridgeScheduler(max_batch=8)`` on a fresh engine and
+             registry: 4 tenants x 6 requests, request i a planted graph of
+             12,500 - i % 7 vertices and 1,250,000 edges (one admission
+             bucket, so a full dispatch is a 2^24-slot union); the
+             power-of-two warmup (1, 2, 4, 8), the sequential loop,
+             everything submitted then drained, the ragged waves 5, 3, 1,
+             7, a churn turn of 4 reads and 4 writes on request 0's live
+             graph (4,096-edge inserts inside the blobs, 1,024-key
+             deletions of non-bridge edges); then a wave of ``cuts`` reads
+             with the host final. Seconds per query sequential and
+             scheduled, worst and best tenant p99, the counters (held equal
+             to fig10's pinned ``dispatches=12 coalesced=59 padded=5
+             writes=4 occupancy_x100=492``), programs built after warmup
+             (held at 0), launches, peak bytes; every ticket against its
+             planted truth. Then one full dispatch's kernel calls bit for
+             bit (``scheduler_kernel_check``).
+5h. checkpoint — the live Fig. 2 graph with ``enable_checkpoints(every=2)``
+             in a temporary directory: ``load``, 4 inserts of 4,096 edges
+             (2 cadence saves), ``checkpoint_now``, one drifting insert,
+             ``restore_live`` cold then warm (held: no program run, cache
+             keys unchanged, arrays on the card, the snapshot's answer),
+             then 3 inserts that build nothing. Bytes per save, save,
+             restore and write seconds, the policy's counters.
+5i. failover — ``benchmarks/fig11_failover.py``'s drills on the Fig. 2
+             graph's M = 8 shard rows: ``simulate_failover_host`` under
+             ``paper`` with no kill, and with machine 0 killed at phase
+             boundary 1 recovered from per-boundary snapshots in a disk
+             ``MachineCheckpoints`` or by re-certifying its shard, for
+             ``bridges`` (``2ec``) and ``cuts`` (``sfs``), cold then warm:
+             walls, ``merge/*`` and ``recover/*`` span seconds, launches,
+             peak bytes, the info dict (held equal to the one the port gives
+             on the CPU for a small graph), the answering certificate's
+             device-final answer against the planted truth and every
+             survivor's certificate equal to it. Then one recovery fold's
+             and one re-merge level's kernel calls bit for bit
+             (``failover_kernel_check``).
+5j. failover_drill — ``launch.failover.serve_failover``: 8 machines, 6
+             steps, machine 1 killed at step 2, snapshots every step, n =
+             100,000 with 1,000,000 edges (cut from 10 M: the drill checks
+             every step by a host Tarjan over every live edge), 4,096-edge
+             writes a step. Held: final parity, no post-recovery parity
+             failure, recovery from the checkpoint, each counter delta 1.
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode,
@@ -167,11 +210,13 @@ import contextlib
 import datetime
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -198,17 +243,19 @@ from repro_torch.core.certificate import (
 )
 from repro_torch.core.certs import certificate_builder, certificate_names
 from repro_torch.core.forest import _sfs_impl, hook_round, spanning_forest_ex
+from repro_torch.checkpoint import MachineCheckpoints
 from repro_torch.core.merge import (
     SCHEDULES,
     build_distributed_analysis_fn,
     certify_shards,
     merge_phase_plan,
     simulate_churn_host,
+    simulate_failover_host,
     simulate_merge_host,
     simulate_stream_merge_host,
 )
 from repro_torch.core.partition import partition_edges
-from repro_torch.engine import BridgeEngine
+from repro_torch.engine import BridgeEngine, BridgeScheduler
 from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
 from repro_torch.graph.datastructs import (
@@ -275,8 +322,15 @@ from repro_torch.kernels.segment_min.kernel import (
     previous_segment_min,
 )
 from repro_torch.kernels.segment_min.ref import segment_min_ref
+from repro_torch.launch.failover import serve_failover
 from repro_torch.models.recsys import init_sasrec, sasrec_hidden
-from repro_torch.obs import disable_tracing, enable_tracing
+from repro_torch.obs import (
+    MetricsRegistry,
+    disable_tracing,
+    enable_tracing,
+    get_tracer,
+)
+from repro_torch.runtime import FailureInjector
 from repro_torch.training.steps import make_recsys_steps
 
 #: the paper's Fig. 2 operating point (configs/bridges_dense.py::CONFIG)
@@ -1210,16 +1264,18 @@ KERNEL_WRAPPERS = {"boruvka_round": (boruvka_ops, "boruvka_round_cuda"),
 
 
 @contextlib.contextmanager
-def recording_kernels(calls: dict, names=tuple(KERNEL_WRAPPERS)):
+def recording_kernels(calls: dict, names=tuple(KERNEL_WRAPPERS), key=None):
     """Each named connectivity kernel's arguments, per call, appended to
-    ``calls[name]`` for the block's duration, the ops still launching the
-    kernels. The tensors are kept, not copied: the pipeline writes none of
-    a kernel's inputs in place after the call."""
+    ``calls[name]`` (with ``key``, to ``calls[key()][name]``, ``key``
+    asked at each call) for the block's duration, the ops still launching
+    the kernels. The tensors are kept, not copied: the pipeline writes none
+    of a kernel's inputs in place after the call."""
     saved = {name: getattr(*KERNEL_WRAPPERS[name]) for name in names}
 
     def recorder(name):
         def record(*args):
-            calls.setdefault(name, []).append(args)
+            into = calls if key is None else calls.setdefault(key(), {})
+            into.setdefault(name, []).append(args)
             return saved[name](*args)
         return record
 
@@ -2111,6 +2167,486 @@ def sync_if_card(device) -> None:
         sync()
 
 
+# ------------------------------------------- the scheduler, checkpoints, failover
+#: the scheduler phase: ``benchmarks/fig10_serving.py``'s fixed submission
+#: script at the engine phase's batch width: SCHED_TENANTS tenants of
+#: SCHED_PER_TENANT requests, request i a planted graph of BATCH_N - i % 7
+#: vertices and BATCH_E edges with SCHED_BRIDGES bridges (seed i), all in
+#: one admission bucket (16,384 vertices, 2^21 slots); the coalescing window
+SCHED_TENANTS, SCHED_PER_TENANT, SCHED_BRIDGES = 4, 6, 3
+SCHED_MAX_BATCH = 8
+#: the counters ``BENCH_baseline_fig10.json`` pins for that script, which
+#: depend on the script only
+FIG10_PINNED = {"dispatches": 12, "coalesced": 59, "padded_slots": 5,
+                "writes": 4, "occupancy_x100": 492}
+#: recorded kernel calls held against the plain versions, per kernel
+SCHED_CHECK_CALLS = 48
+#: the checkpoint phase's cadence (every second write saves)
+CKPT_EVERY = 2
+#: ``benchmarks/fig11_failover.py``'s drills: no kill, then machine 0 (a
+#: ``paper`` block owner) killed at phase boundary 1, recovered from a
+#: per-boundary snapshot or by re-certifying its shard
+FAILOVER_VICTIM, FAILOVER_BOUNDARY = 0, 1
+FAILOVER_DRILLS = ("clean", "checkpoint", "recertify")
+#: ``launch.failover.serve_failover``'s arguments; ``edges`` cut from the
+#: Fig. 2 point's 10,000,000 to 1,000,000: the drill checks every step by a
+#: host Tarjan over every live edge, tens of seconds a step at 10 M
+FAILOVER_DRILL = {"machines": 8, "steps": 6, "kill_machine": 1,
+                  "kill_at_step": 2, "ckpt_every": 1, "n": 100_000,
+                  "edges": 1_000_000, "delta_edges": 4096,
+                  "schedule": "paper", "seed": 0}
+#: the device of these phases' engines and fleets
+DEVICE = "cuda"
+
+
+def enclosing_span(prefixes: tuple):
+    """(name, index) of the innermost open tracer span whose name starts
+    with one of ``prefixes``, or None."""
+    for sp in reversed(getattr(get_tracer(), "_stack", ())):
+        if sp.name.startswith(prefixes):
+            return sp.name, sp.index
+    return None
+
+
+def sched_requests() -> list:
+    """fig10's request set at the batch width: (tenant, src, dst, n,
+    planted bridges) per request."""
+    reqs = []
+    for i in range(SCHED_TENANTS * SCHED_PER_TENANT):
+        n = BATCH_N - i % 7
+        s, d, planted = gen.planted_bridge_graph(n, BATCH_E, SCHED_BRIDGES,
+                                                 seed=i)
+        reqs.append((f"t{i % SCHED_TENANTS}", s, d, n, planted))
+    return reqs
+
+
+def hold_tickets(tickets, rows, kind: str = "bridges") -> int:
+    """Each ticket's answer against its row's planted truth."""
+    for t, (_, _, _, n, planted) in zip(tickets, rows, strict=True):
+        if not same_answer(kind, t.result(),
+                           planted_truth(n, SCHED_BRIDGES, planted)[kind]):
+            raise AssertionError(f"scheduler: ticket {t.seq} ({t.tenant}/"
+                                 f"{t.op}/{kind}) missed its planted truth")
+    return len(tickets)
+
+
+def plain_edge_keys(rng, src, dst, planted: set, k: int) -> tuple:
+    """``k`` distinct edges of the graph that are not planted bridges: a
+    deletion that leaves every planted bridge and blob as it was."""
+    bridges = np.array([pair_keys(*p)[()] for p in planted])
+    pick = rng.choice(np.flatnonzero(~np.isin(pair_keys(src, dst), bridges)),
+                      k, replace=False)
+    return src[pick], dst[pick]
+
+
+def phase_scheduler(smi: str) -> dict:
+    """fig10's submission script through ``BridgeScheduler(max_batch=8)``
+    on the card (module docstring, phase 5g), then one scheduler dispatch's
+    kernel calls bit for bit against the plain versions. Returns each
+    connectivity kernel's launches over the scheduled runs."""
+    reqs = sched_requests()
+    total = len(reqs)
+    engine = BridgeEngine(device=DEVICE)
+    metrics = MetricsRegistry()
+    sched = BridgeScheduler(engine, max_batch=SCHED_MAX_BATCH,
+                            metrics=metrics)
+    rec = {"phase": "scheduler", "card": smi, "tenants": SCHED_TENANTS,
+           "per_tenant": SCHED_PER_TENANT, "max_batch": SCHED_MAX_BATCH,
+           "n": BATCH_N, "edges": BATCH_E,
+           "row_slots": admission_capacity(BATCH_E, MIN_BUCKET)}
+    held = 0
+    # warmup: the one-graph program, the power-of-two batched programs and
+    # the live graph's insert/delete/final programs
+    _, s0, d0, n0, p0 = reqs[0]
+    sync()
+    t0 = time.perf_counter()
+    if engine.analyze(s0, d0, n0) != p0:
+        raise AssertionError("scheduler warmup: analyze missed the truth")
+    b = 1
+    while b <= SCHED_MAX_BATCH:
+        tickets = [sched.submit("_warm", s0, d0, n0) for _ in range(b)]
+        sched.drain_all()
+        held += hold_tickets(tickets, [reqs[0]] * b)
+        b *= 2
+    rng = np.random.default_rng(SEED + 7)
+    blobs = planted_truth(n0, SCHED_BRIDGES, p0)["2ecc"]
+    inserts = [random_blob_edges(rng, blobs, ENGINE_INSERT) for _ in range(3)]
+    deletes = [plain_edge_keys(rng, s0, d0, p0, ENGINE_KEYS)
+               for _ in range(3)]
+    engine.load(s0, d0, n0)
+    if (engine.insert_edges(*inserts[0]) != p0
+            or engine.delete_edges(*deletes[0]) != p0):
+        raise AssertionError("scheduler warmup: a live write missed the "
+                             "truth")
+    sync()
+    rec["warmup_s"] = time.perf_counter() - t0
+    warm_traces = engine.stats.traces
+    rec["warm_cache"] = engine.cache_info()
+
+    # the sequential loop: one analyze per request
+    sync()
+    t0 = time.perf_counter()
+    seq = [engine.analyze(s, d, n) for _, s, d, n, _ in reqs]
+    sync()
+    rec["sequential_s_per_query"] = (time.perf_counter() - t0) / total
+    if any(got != r[4] for got, r in zip(seq, reqs)):
+        raise AssertionError("scheduler: a sequential answer missed")
+    held += total
+
+    # everything submitted, then drained; launches and peak bytes from here
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    tickets = [sched.submit(t, s, d, n) for t, s, d, n, _ in reqs]
+    sched.drain_all()
+    sync()
+    rec["scheduled_s_per_query"] = (time.perf_counter() - t0) / total
+    rec["speedup_vs_sequential"] = (rec["sequential_s_per_query"]
+                                    / rec["scheduled_s_per_query"])
+    held += hold_tickets(tickets, reqs)
+    p99 = {t: metrics.histogram(f"sched/tenant/{t}/latency_s").percentile(
+        0.99) for t in sched.tenants() if t != "_warm"}
+    rec["tenant_p99_s"] = {"worst": max(p99.values()),
+                           "best": min(p99.values())}
+
+    # ragged waves: occupancy varies, programs must not
+    ragged = iter(reqs)
+    for wave in (5, 3, 1, 7):
+        rows = [next(ragged) for _ in range(wave)]
+        tickets = [sched.submit(t, s, d, n) for t, s, d, n, _ in rows]
+        sched.drain()
+        held += hold_tickets(tickets, rows)
+
+    # the churn turn: reads coalesce, writes run between read waves
+    rows = reqs[:SCHED_TENANTS]
+    reads = [sched.submit(t, s, d, n) for t, s, d, n, _ in rows]
+    writes = [sched.submit("t0", *inserts[1 + k // 2], op="insert_edges")
+              if k % 2 == 0 else
+              sched.submit("t0", *deletes[1 + k // 2], op="delete_edges")
+              for k in range(4)]
+    sync()
+    t0 = time.perf_counter()
+    sched.drain_all()
+    sync()
+    rec["churn_turn_s"] = time.perf_counter() - t0
+    held += hold_tickets(reads, rows)
+    held += hold_tickets(writes, [reqs[0]] * len(writes))
+    st = sched.stats
+    rec["counters"] = {"dispatches": st.dispatches,
+                       "coalesced": st.coalesced,
+                       "padded_slots": st.padded_slots, "writes": st.writes,
+                       "occupancy_x100": round(100 * st.occupancy)}
+    rec["warm_retraces"] = engine.stats.traces - warm_traces
+    rec["cache"] = engine.cache_info()
+    if rec["counters"] != FIG10_PINNED:
+        raise AssertionError(f"scheduler counters {rec['counters']} are not "
+                             f"fig10's {FIG10_PINNED}")
+    if rec["warm_retraces"]:
+        raise AssertionError(f"scheduler: {rec['warm_retraces']} program(s) "
+                             f"built after warmup")
+    launches = launch_counts()
+
+    # one more wave of cuts with the host final: frontier_round under the
+    # scheduler (a new program family, after the pinned counters)
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    tickets = [sched.submit(t, s, d, n, kind="cuts", final="host")
+               for t, s, d, n, _ in rows]
+    sched.drain_all()
+    sync()
+    rec["cuts_wave_s"] = time.perf_counter() - t0
+    cuts_launches = launch_counts()
+    held += hold_tickets(tickets, rows, "cuts")
+    rec["launches"] = {"scheduled": launches, "cuts_wave": cuts_launches}
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    rec["answers_held"] = held
+    rec["scheduler_snapshot"] = {k: v for k, v in sched.snapshot().items()
+                                 if k != "tenants"}
+    emit(rec)
+
+    # one full dispatch's kernel calls, bit for bit
+    calls = {}
+    rows = reqs[:SCHED_MAX_BATCH]
+    with recording_kernels(calls):
+        tickets = [sched.submit(t, s, d, n) for t, s, d, n, _ in rows]
+        sched.drain_all()
+    hold_tickets(tickets, rows)
+    union = SCHED_MAX_BATCH * admission_capacity(BATCH_E, MIN_BUCKET)
+    calls = {name: args[:SCHED_CHECK_CALLS] for name, args in calls.items()}
+    checked = check_recorded("scheduler_dispatch", calls, lambda name, args: (
+        name != "boruvka_round" or args[0].numel() == union),
+        "scheduler_kernel_check")
+    if {r["name"] for r in checked} < {"boruvka_round", "segment_min"}:
+        raise AssertionError("the scheduler's dispatch ran no union round "
+                             "or no segment_min")
+    del calls, engine, sched
+    out = {name: launches[name] + cuts_launches[name]
+           for name in ("boruvka_round", "frontier_round", "segment_min")}
+    if not (launches["boruvka_round"] and launches["segment_min"]
+            and cuts_launches["frontier_round"]):
+        raise AssertionError(f"the scheduler phase launched {out}")
+    return out
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.iterdir())
+
+
+def phase_checkpoint(src, dst, planted, truth, smi: str) -> None:
+    """The live Fig. 2 graph under ``enable_checkpoints(every=2)`` (module
+    docstring, phase 5h), in a temporary directory removed at the end."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-ckpt-"))
+    try:
+        engine = BridgeEngine(device=DEVICE)
+        policy = engine.enable_checkpoints(tmp, every=CKPT_EVERY)
+        rng = np.random.default_rng(SEED + 8)
+
+        def insert():
+            got = engine.insert_edges(*random_blob_edges(
+                rng, truth["2ecc"], ENGINE_INSERT))
+            if got != planted:
+                raise AssertionError("checkpoint: an insert missed the "
+                                     "planted bridges")
+
+        engine.load(src, dst, N_NODES)
+        if engine.current_analysis("bridges") != planted:
+            raise AssertionError("checkpoint: load missed the truth")
+        tr = enable_tracing()
+        try:
+            for _ in range(4):
+                insert()
+            sync()
+        finally:
+            disable_tracing()
+        if policy.saves != 2:
+            raise AssertionError(f"checkpoint: {policy.saves} cadence saves "
+                                 f"in 4 writes at every={CKPT_EVERY}")
+        steps = policy.manager.steps()
+        rec = {"phase": "checkpoint", "card": smi, "every": CKPT_EVERY,
+               "n": N_NODES, "edges": N_EDGES,
+               "full_slots": int(engine._live.full[0].numel()),
+               "bytes_per_save": {s: dir_bytes(tmp / f"step-{s:010d}")
+                                  for s in steps},
+               "write_s": [sp["dur"] for sp in tr.spans()
+                           if sp["name"] == "engine/insert_edges"],
+               "save_s": [sp["dur"] for sp in tr.spans()
+                          if sp["name"] == "engine/checkpoint_maybe"
+                          and sp["attrs"]["step"] % CKPT_EVERY == 0]}
+        at_snapshot = engine.current_analysis("bridges")
+        sync()
+        t0 = time.perf_counter()
+        engine.checkpoint_now()
+        rec["checkpoint_now_s"] = time.perf_counter() - t0
+        insert()  # drift past the snapshot
+        programs = set(engine._cache.keys())
+        rec["before_restore"] = engine.cache_info()
+        for run in ("cold", "warm"):
+            sync()
+            t0 = time.perf_counter()
+            step = engine.restore_live()
+            sync()
+            rec[f"restore_{run}_s"] = time.perf_counter() - t0
+            if (engine.stats.traces != rec["before_restore"]["traces"]
+                    or set(engine._cache.keys()) != programs):
+                raise AssertionError("restore_live ran a program")
+        rec["restored_step"] = step
+        rec["after_restore"] = engine.cache_info()
+        live = engine._live
+        devices = {t.device.type for t in live.full} | {
+            t.device.type for state in live.certs.values()
+            if state is not None for t in state}
+        rec["restored_on"] = sorted(devices)
+        if devices != {torch.device(DEVICE).type}:
+            raise AssertionError(f"restored arrays on {devices}")
+        got = engine.current_analysis("bridges")
+        if got != at_snapshot or got != planted:
+            raise AssertionError("after restore_live the answer differs "
+                                 "from the snapshot's")
+        traces = engine.stats.traces
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            insert()
+        sync()
+        rec["warm_inserts_after_restore_s"] = time.perf_counter() - t0
+        if engine.stats.traces != traces:
+            raise AssertionError("an insert after restore_live built a "
+                                 "program")
+        rec["snapshot"] = engine.snapshot()["checkpoint"]
+        rec["final_cache"] = engine.cache_info()
+        emit(rec)
+        del engine, live
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def failover_injector(drill: str) -> FailureInjector:
+    return FailureInjector(kill_schedule=None if drill == "clean" else
+                           {FAILOVER_VICTIM: FAILOVER_BOUNDARY})
+
+
+def failover_infos_cpu(kind: str) -> dict:
+    """Each drill's info dict on the CPU, for the same machines, schedule,
+    kill and cadence on a small graph (96 vertices, 2,000 edges): the dict
+    depends only on those."""
+    s, d, _ = gen.planted_bridge_graph(96, 2000, 3, seed=7)
+    ps, pd, pm = partition_edges(s, d, 96, DIST_MACHINES, seed=1)
+    rows = [EdgeList(torch.from_numpy(ps[i]), torch.from_numpy(pd[i]),
+                     torch.from_numpy(pm[i]), 96)
+            for i in range(DIST_MACHINES)]
+    certify = certificate_builder(DIST_KINDS[kind])
+    return {drill: simulate_failover_host(
+        rows, "paper", failover_injector(drill), certify=certify,
+        checkpoint_every=1 if drill == "checkpoint" else None)[2]
+        for drill in FAILOVER_DRILLS}
+
+
+def phase_failover(src, dst, truth, smi: str) -> dict:
+    """``fig11``'s three drills of ``simulate_failover_host`` on the Fig. 2
+    shards (module docstring, phase 5i), then one recovery fold's and one
+    re-merge level's kernel calls bit for bit. Returns each connectivity
+    kernel's launches over the warm drills."""
+    shards, cap = stacked_shards(src, dst, DIST_MACHINES)
+    rows = [EdgeList(shards[0][i], shards[1][i], shards[2][i], N_NODES)
+            for i in range(DIST_MACHINES)]
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-fleet-"))
+    launches = {}
+    try:
+        for kind, cert in DIST_KINDS.items():
+            certify = certificate_builder(cert)
+            expected = failover_infos_cpu(kind)
+            for drill in FAILOVER_DRILLS:
+                rec = {"phase": "failover", "card": smi, "schedule": "paper",
+                       "kind": kind, "certificate": cert, "drill": drill,
+                       "machines": DIST_MACHINES, "shard_slots": cap,
+                       "kill": (None if drill == "clean" else
+                                {"machine": FAILOVER_VICTIM,
+                                 "boundary": FAILOVER_BOUNDARY})}
+                for run in ("cold", "warm"):
+                    store = (MachineCheckpoints(tmp / f"{kind}-{run}")
+                             if drill == "checkpoint" else None)
+
+                    def call():
+                        t0 = time.perf_counter()
+                        out = simulate_failover_host(
+                            rows, "paper", failover_injector(drill),
+                            certify=certify,
+                            checkpoint_every=1 if store else None,
+                            checkpoints=store)
+                        sync()
+                        seconds = time.perf_counter() - t0
+                        alive, certs, info = out
+                        got = answer(certs[alive.index(info["answering"])],
+                                     kind, "device")
+                        return out, got, seconds
+
+                    tr = enable_tracing()
+                    try:
+                        ((alive, certs, info), got, drill_s), rec[run] = \
+                            timed(call)
+                    finally:
+                        disable_tracing()
+                    roll = tr.rollup()
+                    rec[run].update(
+                        drill_s=drill_s,
+                        spans_s={name: row["total_s"]
+                                 for name, row in roll.items()
+                                 if name.startswith(("recover/",
+                                                     "merge/"))})
+                    if not same_answer(kind, got, truth[kind]):
+                        raise AssertionError(f"failover {drill}/{kind}: the "
+                                             f"answer missed the truth")
+                    if info != expected[drill]:
+                        raise AssertionError(
+                            f"failover {drill}/{kind}: info {info} differs "
+                            f"from the CPU's {expected[drill]}")
+                    if drill == "clean":
+                        if info["restarts"]:
+                            raise AssertionError("the clean drill restarted")
+                    else:
+                        if info["recoveries"][0]["source"] != drill:
+                            raise AssertionError(
+                                f"failover {drill}: recovered by "
+                                f"{info['recoveries'][0]['source']}")
+                        ans = certs[alive.index(info["answering"])]
+                        for c in certs:
+                            if not all(torch.equal(getattr(c, f),
+                                                   getattr(ans, f))
+                                       for f in ("src", "dst", "mask")):
+                                raise AssertionError(
+                                    "a survivor's certificate differs from "
+                                    "the answering one")
+                    if run == "warm":
+                        for name, n in rec[run]["launches"].items():
+                            launches[name] = launches.get(name, 0) + n
+                rec["info"] = info
+                del certs
+                emit(rec)
+
+        # one recovery fold's and one re-merge level's kernel calls
+        calls = {}
+        tr = enable_tracing()
+        try:
+            with recording_kernels(calls, key=lambda: enclosing_span(
+                    ("recover/fold", "merge/level"))):
+                simulate_failover_host(rows, "paper",
+                                       failover_injector("recertify"))
+        finally:
+            disable_tracing()
+        fold = min(k for k in calls if k and k[0] == "recover/fold")
+        level = min((k for k in calls
+                     if k and k[0].startswith("merge/level") and k[1] > fold[1]),
+                    key=lambda k: k[1])
+        for label, key in (("recover_fold", fold), ("remerge_" + level[0][6:],
+                                                    level)):
+            got = {name: args[:SCHED_CHECK_CALLS]
+                   for name, args in calls[key].items()}
+            if not check_recorded(label, got, lambda name, args: True,
+                                  "failover_kernel_check"):
+                raise AssertionError(f"{label}: no kernel call recorded")
+        del calls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del rows, shards
+    if not launches.get("boruvka_round") or not launches.get("segment_min"):
+        raise AssertionError(f"the failover phase launched {launches}")
+    return {name: n for name, n in launches.items() if n}
+
+
+def phase_failover_drill(smi: str) -> None:
+    """``serve_failover`` with ``FAILOVER_DRILL`` on the card (module
+    docstring, phase 5j)."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-serve-"))
+    counters = ("failures/injected", "failures/recovered",
+                "fleet/dead_machines")
+    try:
+        args = types.SimpleNamespace(**FAILOVER_DRILL, ckpt_dir=str(tmp))
+        tr = enable_tracing()
+        try:
+            report, rec = timed(lambda: serve_failover(args, device=DEVICE))
+        finally:
+            disable_tracing()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report.pop("ckpt_dir")
+    rec.update(phase="failover_drill", card=smi, args=FAILOVER_DRILL,
+               step_s_mean=rec["seconds"] / FAILOVER_DRILL["steps"],
+               spans_s={name: row["total_s"]
+                        for name, row in tr.rollup().items()
+                        if name.startswith(("merge/", "recover/"))},
+               report=report)
+    emit(rec)
+    if not report["final_parity"] or report["parity_failures_post_recovery"]:
+        raise AssertionError("failover_drill: parity failed")
+    if report["recovery"]["source"] != "checkpoint":
+        raise AssertionError(f"failover_drill: recovered by "
+                             f"{report['recovery']['source']}")
+    if report["counters"] != {name: 1 for name in counters}:
+        raise AssertionError(f"failover_drill counters {report['counters']}")
+
+
 def right_aligned(seq: np.ndarray) -> np.ndarray:
     """Each history of ``recsys_batches`` moved to end at the last position
     (padding first), as a served user's history is: the user state is the
@@ -2556,6 +3092,12 @@ def main() -> int:
     stream_launches = phase_streaming(src, dst, planted, truth, smi)
     phase_streaming_sharded(src, dst, truth)
     phase_repairs()
+    t0 = time.perf_counter()
+    sched_launches = phase_scheduler(smi)
+    phase_checkpoint(src, dst, planted, truth, smi)
+    failover_launches = phase_failover(src, dst, truth, smi)
+    phase_failover_drill(smi)
+    emit({"phase": "serving_phases", "seconds": time.perf_counter() - t0})
 
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2596,6 +3138,10 @@ def main() -> int:
                if name in engine_launches else {}),
             **({"launches_streaming": stream_launches[name]}
                if name in stream_launches else {}),
+            **({"launches_scheduler": sched_launches[name]}
+               if name in sched_launches else {}),
+            **({"launches_failover": failover_launches[name]}
+               if name in failover_launches else {}),
             **({"previous_kernel_ms": rec["previous_kernel_ms"]}
                if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)

@@ -24,6 +24,11 @@ Two forms of the same schedules:
 * the host simulator (``simulate_merge_host``, ``simulate_churn_host``):
   one process drives every machine's certificate in turn, on whatever
   device the certificates live on (the card, or the CPU in the tests);
+* the failover drill (``simulate_failover_host``): the host simulator
+  with a ``FailureInjector`` killing machines at phase boundaries, the
+  lost certificate recovered from a snapshot or re-certified, and the
+  survivors' coverage-disjoint states re-merged under the degraded plan
+  (``degraded_phase_plan``);
 * the process-group program (``build_distributed_analysis_fn``): every
   rank of a ``DeviceMesh`` runs it on its own shard, and the phases
   exchange certificates with ``dist.batch_isend_irecv``. The mesh's
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -49,7 +55,7 @@ from repro_torch.graph.datastructs import (
     resolve_device,
     tombstone_mask,
 )
-from repro_torch.obs import get_tracer
+from repro_torch.obs import get_metrics, get_tracer
 
 SCHEDULES = ("paper", "xor", "hierarchical")
 
@@ -98,6 +104,34 @@ def merge_phase_plan(schedule: str, m: int, grid=None):
         plan.append([(s * cols + c, d * cols + c)
                      for c in range(cols) for (s, d) in perm])
     return plan
+
+
+def degraded_phase_perm(schedule: str, alive, q: int):
+    """Phase-``q`` permutation of the DEGRADED schedule: ``_phase_perm``
+    recomputed over the surviving machine set, mapped back to the global
+    machine ids through the rank-ordered survivor list. Survivors renumber
+    densely, run the same recursive structure at size ``len(alive)``, and
+    keep their ids."""
+    alive = sorted(alive)
+    return [(alive[s], alive[d])
+            for (s, d) in _phase_perm(schedule, len(alive), q)]
+
+
+def degraded_phase_plan(schedule: str, alive):
+    """Re-merge plan after machine loss: ``(plan, degraded_schedule)``.
+
+    The same schedule recomputed over the survivor set via
+    ``degraded_phase_perm``; ``hierarchical`` falls back to flat ``xor``
+    because a loss breaks the rectangular grid. Phase count is
+    ceil(log2(survivors)) wherever in the old plan the loss happened:
+    partial merge progress is never thrown away, the survivors'
+    coverage-disjoint REPRESENTATIVE states re-merge (sound by the
+    disjoint union lemma, see ``simulate_failover_host``)."""
+    sched = "xor" if schedule == "hierarchical" else schedule
+    alive = sorted(alive)
+    plan = merge_phase_plan(sched, len(alive))
+    return ([[(alive[s], alive[d]) for (s, d) in entry] for entry in plan],
+            sched)
 
 
 # ------------------------------------------------------------ host simulator
@@ -266,6 +300,243 @@ def simulate_stream_merge_host(shards, chunk_edges: int,
     merged = simulate_merge_host(certs, schedule, certify=desc.build,
                                  grid=grid)
     return merged, streams
+
+
+class _MemoryCertStore:
+    """In-process per-machine snapshot store: the simulator default when
+    ``checkpoint_every`` is set without a disk store. Same protocol as
+    ``checkpoint.MachineCheckpoints`` (``save``/``steps``/``restore``),
+    which the serving path substitutes for real atomic+CRC snapshots.
+    Keeps the full history: recovery walks snapshots newest-first and must
+    be able to fall back when the newest one's coverage overlaps the
+    survivors' (see ``simulate_failover_host``)."""
+
+    def __init__(self):
+        self._snaps: dict[int, dict[int, dict]] = {}
+
+    def save(self, machine: int, step: int, tree: dict):
+        self._snaps.setdefault(machine, {})[step] = dict(tree)
+
+    def steps(self, machine: int) -> list[int]:
+        """Snapshot steps for one machine, newest first."""
+        return sorted(self._snaps.get(machine, {}), reverse=True)
+
+    def restore(self, machine: int, step: int) -> dict:
+        return self._snaps[machine][step]
+
+
+def simulate_failover_host(shards, schedule: str, injector, *, certify=None,
+                           grid=None, checkpoint_every=None, checkpoints=None):
+    """Killed-machine merge drill: the host-side failover path, end to end.
+
+    Runs the REAL phase plan (``merge_phase_plan``) machine-by-machine like
+    ``simulate_merge_host``, but at every phase *boundary* asks the
+    ``FailureInjector`` (``runtime.failures``) which machines die. A kill at
+    boundary ``p`` means the machine completed phases ``0..p-1`` and its
+    in-memory state is gone before phase ``p``.
+
+    **Why re-merge needs care.** Every machine's state is a certificate of
+    the union of some subset of the original per-machine certificates — its
+    *coverage*. The schedules only ever union states with DISJOINT coverage,
+    and that is load-bearing: certificates are fixed-capacity edge lists
+    with multiset semantics, so unioning two states that both carry the same
+    original copy of an edge duplicates it, the duplicate pair looks
+    2-edge-connected, and a true bridge silently disappears. Union is NOT
+    idempotent here. A naive "fold everything the survivors have back
+    together" re-merge is therefore unsound; restarting from scratch throws
+    away all O(E/M) certify work. The middle road:
+
+    1. **Pick representatives.** Coverage sets form a laminar family (every
+       union ever performed was disjoint), so the distinct maximal coverage
+       sets among survivors are pairwise disjoint. One survivor per maximal
+       set becomes a re-merge participant; survivors with nested/duplicate
+       coverage sit out.
+    2. **Recover only what is lost.** If some representative's coverage
+       already contains the dead machine ``k`` (a survivor absorbed
+       ``cert_k`` in an earlier phase), nothing is recovered — source
+       ``"absorbed"``. Otherwise ``cert_k`` comes from ``k``'s NEWEST
+       snapshot whose recorded coverage is disjoint from the
+       representatives' (``recover/checkpoint_restore`` span) — a snapshot
+       is a coverage-labelled certificate, so the disjointness check is
+       exact — or, with no usable snapshot, the designated survivor
+       (lowest-id representative) re-certifies ``shards[k]``
+       (``recover/recertify`` span). The recovered certificate folds into
+       the designated survivor (``recover/fold``), whose coverage grows
+       accordingly — still disjoint from every other representative's.
+    3. **Re-merge the representatives** under the degraded plan
+       (``degraded_phase_plan``): ceil(log2(representatives)) phases. Every
+       union in the re-merge is again disjoint, so the disjoint union lemma
+       (cert(cert(A) ⊎ cert(B)) certifies A ⊎ B) applies verbatim — the
+       exact soundness argument of the clean schedules. After the plan, the
+       answering representative's certificate is fanned out to every
+       survivor (one broadcast), restoring xor-style full redundancy.
+
+    The phases rerun; the certificates do not — no per-shard certify work
+    already done is repeated (the only new certify is the dead shard's, and
+    only when no survivor or snapshot covers it).
+
+    ``shards``: per-machine ``EdgeList`` EDGE shards (certificates are
+    built here, like ``simulate_churn_host``). ``checkpoint_every=K``
+    snapshots every live machine's coverage-labelled state at every K-th
+    phase boundary into ``checkpoints`` (default: an in-memory store; pass
+    ``checkpoint.MachineCheckpoints`` for the real atomic+CRC path).
+    Boundary-``p`` kills are processed BEFORE the boundary-``p`` snapshot —
+    a snapshot is only durable if its machine survives the boundary — so a
+    kill at boundary 0 never finds a checkpoint. Each machine loss handled
+    ticks the global ``failures/recovered`` counter.
+
+    Returns ``(survivors, certs, info)``: the surviving machine ids, their
+    final certificates (identical across survivors after a recovery
+    fan-out; under a clean ``paper`` run machine 0 answers), and an info
+    dict — ``clean_phases`` (boundaries survived before the first kill),
+    ``remerge_phases``, ``killed``, ``recoveries`` (per-machine source:
+    absorbed/checkpoint/recertify, + checkpoint phase), ``restarts``,
+    ``answering``.
+    """
+    certify = sparse_certificate if certify is None else certify
+    tr = get_tracer()
+    n = shards[0].n_nodes
+    cap = certificate_capacity(n)
+    m = len(shards)
+    dev = shards[0].device
+    empty = empty_certificate(n, cap, device=dev)
+
+    states: dict[int, EdgeList] = {}
+    for i, sh in enumerate(shards):
+        with tr.span("merge/certify", machine=i) as sp:
+            states[i] = sp.sync(certify(sh, capacity=cap))
+    cover: dict[int, frozenset] = {i: frozenset((i,)) for i in states}
+
+    store = checkpoints
+    if checkpoint_every and store is None:
+        store = _MemoryCertStore()
+    alive = sorted(states)
+    participants = list(alive)
+    info = {"schedule": schedule, "machines": m, "killed": [],
+            "recoveries": [], "clean_phases": None, "remerge_phases": 0,
+            "restarts": 0, "answering": 0}
+    recovered_counter = get_metrics().counter("failures/recovered")
+
+    def snapshot(tick):
+        if not checkpoint_every or tick % checkpoint_every:
+            return
+        for i in alive:
+            c = states[i]
+            store.save(i, tick, {
+                "src": c.src, "dst": c.dst, "mask": c.mask,
+                "coverage": np.asarray(sorted(cover[i]), np.int32)})
+
+    def pick_representatives():
+        # Laminar family ⇒ distinct maximal coverage sets are pairwise
+        # disjoint; largest-first greedy (ties to the lowest id) keeps
+        # exactly one survivor per maximal set.
+        reps, taken = [], set()
+        for i in sorted(alive, key=lambda j: (-len(cover[j]), j)):
+            if cover[i] & taken:
+                continue
+            reps.append(i)
+            taken |= cover[i]
+        return sorted(reps), taken
+
+    def recover(k, tick, reps, taken):
+        designated = min(reps)
+        if k in taken:
+            # some representative already absorbed cert_k in an earlier
+            # phase — recovering a second copy would double-count it
+            info["recoveries"].append({"machine": k, "source": "absorbed",
+                                       "checkpoint_phase": None,
+                                       "into": None})
+            recovered_counter.inc()
+            return taken
+        with tr.span("recover/machine", machine=k, boundary=tick,
+                     into=designated):
+            rec, rec_cov, source, ck_phase = None, None, "recertify", None
+            if store is not None:
+                for step in store.steps(k):
+                    tree = store.restore(k, step)
+                    cov = frozenset(int(x) for x in tree["coverage"])
+                    if cov & taken:
+                        continue  # overlaps a representative: unusable
+                    with tr.span("recover/checkpoint_restore", machine=k,
+                                 phase=step) as sp:
+                        rec = sp.sync(EdgeList(
+                            torch.as_tensor(tree["src"], dtype=INT,
+                                            device=dev),
+                            torch.as_tensor(tree["dst"], dtype=INT,
+                                            device=dev),
+                            torch.as_tensor(tree["mask"], dtype=torch.bool,
+                                            device=dev), n))
+                    rec_cov, source, ck_phase = cov, "checkpoint", step
+                    break
+            if rec is None:
+                with tr.span("recover/recertify", machine=k,
+                             by=designated) as sp:
+                    rec = sp.sync(certify(shards[k], capacity=cap))
+                rec_cov = frozenset((k,))
+            with tr.span("recover/fold", machine=k, into=designated) as sp:
+                states[designated] = sp.sync(
+                    certify(concat_edges(states[designated], rec),
+                            capacity=cap))
+            cover[designated] = cover[designated] | rec_cov
+        recovered_counter.inc()
+        info["recoveries"].append({"machine": k, "source": source,
+                                   "checkpoint_phase": ck_phase,
+                                   "into": designated})
+        return taken | rec_cov
+
+    sched = schedule
+    plan = merge_phase_plan(schedule, m, grid=grid)
+    q = 0       # position in the current plan
+    tick = 0    # phase boundaries survived since merge start (never resets)
+    while True:
+        killed = [k for k in injector.killed_machines(tick) if k in alive]
+        if killed:
+            if info["clean_phases"] is None:
+                info["clean_phases"] = tick
+            for k in killed:
+                alive.remove(k)
+                states.pop(k)
+                cover.pop(k)
+                info["killed"].append(k)
+            if not alive:
+                raise RuntimeError("failover: every machine was killed")
+            participants, taken = pick_representatives()
+            for k in killed:
+                taken = recover(k, tick, participants, taken)
+            plan, sched = degraded_phase_plan(schedule, participants)
+            info["restarts"] += 1
+            info["remerge_phases"] = len(plan)
+            q = 0
+        snapshot(tick)
+        if q >= len(plan):
+            break
+        pairs = plan[q]
+        recv = {d: (states[s], cover[s]) for (s, d) in pairs}
+        with tr.span(f"merge/level{q}", schedule=sched,
+                     machines=len(participants), receivers=len(recv)):
+            for i in participants:
+                got = recv.get(i)
+                with tr.span("merge/machine", machine=i, level=q,
+                             receiving=got is not None) as sp:
+                    other, other_cov = got if got else (empty, frozenset())
+                    states[i] = sp.sync(
+                        certify(concat_edges(states[i], other),
+                                capacity=cap))
+                    cover[i] = cover[i] | other_cov
+        q += 1
+        tick += 1
+    if info["clean_phases"] is None:
+        info["clean_phases"] = tick
+    # the machine with full coverage answers; after a recovery the result
+    # fans out to every survivor so the fleet returns to full redundancy
+    answering = min((i for i in alive if len(cover[i]) == m),
+                    default=min(alive))
+    info["answering"] = answering
+    if info["restarts"]:
+        for i in alive:
+            states[i] = states[answering]
+            cover[i] = cover[answering]
+    return alive, [states[i] for i in alive], info
 
 
 # ------------------------------------------------------ process-group program

@@ -1,6 +1,6 @@
 """The build-once, shape-bucketed, batched and incrementally updatable
 query engine over the bridges pipeline and the analysis registry's kinds
-(``repro.engine``, without its scheduler)."""
+and its continuous-batching scheduler (``repro.engine``)."""
 from repro_torch.engine.batched import (
     ANALYSIS_KINDS,
     BatchedEdgeList,
@@ -17,16 +17,19 @@ from repro_torch.engine.engine import (
     find_bridges_batch,
     get_default_engine,
 )
+from repro_torch.engine.scheduler import BridgeScheduler, Ticket
 from repro_torch.engine.state import LiveState, SchedStats
 
 __all__ = [
     "ANALYSIS_KINDS",
     "BatchedEdgeList",
     "BridgeEngine",
+    "BridgeScheduler",
     "EngineStats",
     "LiveState",
     "ProgramCache",
     "SchedStats",
+    "Ticket",
     "admission_bucket",
     "analyze_batch",
     "find_bridges_batch",

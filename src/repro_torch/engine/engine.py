@@ -36,9 +36,16 @@ Bucketing the vertex count is sound because every stage treats the extra
 vertices as isolated; bucketing the edge capacity because all device code
 is mask-aware.
 
-The scheduler (``submit``/``drain``) and checkpoints
-(``enable_checkpoints``, ``checkpoint_now``, ``restore_live``) of the
-reference are not ported yet.
+* **scheduled** — ``submit``/``drain``/``drain_all`` queue tenant-tagged
+  requests on a lazily built ``BridgeScheduler`` (``engine/scheduler.py``):
+  same-bucket reads coalesce into one ``analyze_batch`` union pass, writes
+  run between read waves.
+* **checkpointed** — ``enable_checkpoints`` attaches an every-K-write-ops
+  ``CheckpointPolicy``: each applied ``insert_edges``/``delete_edges``/
+  ``ingest_chunk`` advances the checkpoint clock, and every K-th one
+  snapshots the live state (atomic manifest + CRC, ``checkpoint/``).
+  ``checkpoint_now`` snapshots at once; ``restore_live`` puts the newest
+  verified snapshot back on the device and runs no program.
 """
 from __future__ import annotations
 
@@ -75,7 +82,13 @@ from repro_torch.engine.dispatch import (
     build_distributed_program,
     build_final_program,
 )
-from repro_torch.engine.state import EngineStats, LiveState, masked_arrays
+from repro_torch.engine.state import (
+    EngineStats,
+    LiveState,
+    live_state_from_flat,
+    live_state_tree,
+    masked_arrays,
+)
 from repro_torch.graph.datastructs import (
     INT,
     ChunkedEdgeStream,
@@ -128,6 +141,9 @@ class BridgeEngine:
         self.stats = EngineStats()
         self._cache = ProgramCache(self.stats)
         self._live: LiveState | None = None
+        self._scheduler = None  # lazy BridgeScheduler (see .scheduler)
+        self._ckpt = None       # CheckpointPolicy (see enable_checkpoints)
+        self._write_ops = 0     # applied write ops = checkpoint step clock
         self._peak_live_bytes = 0  # high-water device bytes since load
 
     @property
@@ -179,9 +195,10 @@ class BridgeEngine:
         }
 
     def snapshot(self) -> dict:
-        """The engine rollup: program-cache counters and hit rate, and
-        (when a live graph is loaded) the per-certificate rebuild counters
-        with their total, the live edge count and the live bytes."""
+        """The engine rollup: program-cache counters and hit rate, (when a
+        live graph is loaded) the per-certificate rebuild counters with
+        their total, the live edge count and the live bytes, and the
+        scheduler's and the checkpoint policy's rollups once they exist."""
         snap = {"programs": len(self._cache), **self.stats.snapshot()}
         if self._live is not None:
             rebuilds = dict(self._live.rebuilds)
@@ -197,7 +214,133 @@ class BridgeEngine:
                     "spilled": st.spilled_edges, "replays": st.replays,
                     "chunk_bucket": st.chunk_bucket,
                 }
+        if self._scheduler is not None:
+            snap["scheduler"] = self._scheduler.snapshot()
+        if self._ckpt is not None:
+            snap["checkpoint"] = self._ckpt.snapshot()
         return snap
+
+    # ------------------------------------------------------------- checkpoint
+    def enable_checkpoints(self, directory, *, every: int = 8, keep: int = 3):
+        """Attach an every-K-write-ops ``CheckpointPolicy``: from now on
+        each applied write op counts one, and every ``every``-th write
+        snapshots the live state (full buffer, materialized certificate
+        states, counters) through an atomic manifest+CRC
+        ``CheckpointManager`` under ``directory``. Returns the policy
+        (counters in ``snapshot()``)."""
+        from repro_torch.checkpoint.manager import (
+            CheckpointManager,
+            CheckpointPolicy,
+        )
+
+        self._ckpt = CheckpointPolicy(
+            CheckpointManager(directory, keep=keep), every=every)
+        return self._ckpt
+
+    def _after_write(self):
+        """One write op applied: advance the checkpoint clock and let the
+        policy decide whether this step snapshots (the tree is only built
+        when it does)."""
+        self._write_ops += 1
+        if self._ckpt is None or self._live is None:
+            return
+        if self._live.full is None:
+            # a streamed live state does not checkpoint: there is no full
+            # buffer to snapshot, and the host spill ring is the recovery
+            # log (replay rebuilds everything)
+            return
+        with get_tracer().span("engine/checkpoint_maybe",
+                               step=self._write_ops):
+            self._ckpt.on_write(self._write_ops,
+                                lambda: live_state_tree(self._live))
+
+    def checkpoint_now(self):
+        """Snapshot the live state immediately, regardless of cadence;
+        returns the checkpoint's directory."""
+        if self._ckpt is None:
+            raise RuntimeError("checkpointing not enabled: call "
+                               "enable_checkpoints() first")
+        if self._live is None:
+            raise RuntimeError("no live graph: call load() first")
+        if self._live.full is None:
+            raise RuntimeError(
+                "streamed live state does not checkpoint: the spill ring "
+                "is the recovery log (re-ingest replays it)")
+        with get_tracer().span("engine/checkpoint", step=self._write_ops):
+            return self._ckpt.checkpoint(self._write_ops,
+                                         live_state_tree(self._live))
+
+    def restore_live(self, step: int | None = None) -> int:
+        """Restore the live state from the newest (or ``step``'s) verified
+        checkpoint: the serving-side recovery path.
+
+        Restore runs NO program: every array goes from the verified host
+        copy straight onto ``self.device``; lazy certificates that were not
+        materialized at save time come back as ``None`` (they materialize
+        from the restored full buffer on first query, through the already
+        cached ``cert_load`` program), and the program cache is untouched,
+        so an engine that served a bucket before the restore serves it
+        after with nothing new built. Ticks ``failures/recovered``.
+        Returns the restored checkpoint step."""
+        if self._ckpt is None:
+            raise RuntimeError("checkpointing not enabled: call "
+                               "enable_checkpoints() first")
+        tr = get_tracer()
+        with tr.span("recover/restore_live", step=step) as sp:
+            found, flat = self._ckpt.manager.restore_flat(step)
+            if found is None:
+                raise RuntimeError(
+                    f"no verified checkpoint to restore under "
+                    f"{self._ckpt.manager.dir}")
+            live = live_state_from_flat(flat)
+            live.full = tuple(torch.from_numpy(x).to(self.device)
+                              for x in live.full)
+            live.certs = {name: tuple(torch.from_numpy(x).to(self.device)
+                                      for x in state)
+                          for name, state in live.certs.items()}
+            for name in certificate_names():
+                live.certs.setdefault(name, None)
+            sp.sync(live.full)
+            self._live = live
+            self._write_ops = found
+            self._ckpt.restores += 1
+            get_metrics().counter("failures/recovered").inc()
+            if getattr(sp, "attrs", None) is not None:
+                # programs cached across the restore (unchanged: the warm
+                # cache serves at once)
+                sp.attrs.update(warm_programs=len(self._cache),
+                                n_bucket=live.n_bucket, restored_step=found)
+        return found
+
+    # -------------------------------------------------------------- scheduler
+    @property
+    def scheduler(self):
+        """The engine's continuous-batching request path, created on first
+        use (``engine/scheduler.py``). For a custom coalescing window or an
+        isolated metrics registry, construct ``BridgeScheduler(engine,
+        ...)`` directly and drive it instead."""
+        if self._scheduler is None:
+            from repro_torch.engine.scheduler import BridgeScheduler
+
+            self._scheduler = BridgeScheduler(self)
+        return self._scheduler
+
+    def submit(self, tenant: str, src, dst, n_nodes: int | None = None,
+               *, op: str = "analyze", kind: str = "bridges",
+               final: str = "device", certificate: str | None = None):
+        """Queue a tenant-tagged request on the engine's scheduler; the
+        returned ``Ticket`` resolves on a later ``drain``."""
+        return self.scheduler.submit(tenant, src, dst, n_nodes, op=op,
+                                     kind=kind, final=final,
+                                     certificate=certificate)
+
+    def drain(self) -> int:
+        """One scheduler step: a coalesced read wave, then the write turn."""
+        return self.scheduler.drain()
+
+    def drain_all(self) -> int:
+        """Drain the scheduler queue to empty."""
+        return self.scheduler.drain_all()
 
     def _bucket(self, m: int) -> int:
         return admission_capacity(m, self.min_bucket)
@@ -582,6 +725,7 @@ class BridgeEngine:
                 self._fold_chunk(chunk)
                 self._account_live_bytes()
             live.count = live.stream.count
+        self._after_write()
         if kind is None:
             return self
         return self.current_analysis(kind=kind, final=final,
@@ -756,6 +900,7 @@ class BridgeEngine:
                 live.full = tuple(sp.sync(
                     afn(fs, fd, fm, recv.src, recv.dst, recv.mask)))
             live.count = needed
+            self._after_write()
             return self.current_analysis(kind=kind, final=final,
                                          certificate=certificate)
 
@@ -822,6 +967,7 @@ class BridgeEngine:
                         self._replay_state(name) if live.full is None
                         else self._cert_load(name, n_bucket, live.full))
             self._account_live_bytes()
+            self._after_write()
             return self.current_analysis(kind=kind, final=final,
                                          certificate=certificate)
 

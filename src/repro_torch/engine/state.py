@@ -52,7 +52,7 @@ class EngineStats:
 
 @dataclasses.dataclass
 class SchedStats:
-    """Continuous-batching scheduler counters, for the scheduler to come.
+    """Continuous-batching scheduler counters (``engine/scheduler.py``).
 
     ``coalesced`` counts real queries served through coalesced batched
     dispatches, ``dispatches`` the device dispatches that served them —

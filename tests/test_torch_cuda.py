@@ -1182,3 +1182,142 @@ def test_repairs_on_the_card_in_a_subprocess(cuda):
     assert proc.returncode == 0, proc.stderr[-4000:]
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     assert rec["device"] == "cuda" and rec["checked"] == 20
+
+
+# ---------------------------------------- scheduler, checkpoints, failover
+def _sched_script(engine, rows, writes):
+    """One submission script through a fresh ``BridgeScheduler``: the
+    power-of-two warmup, everything submitted then drained, ragged waves,
+    a churn turn on row 0's live graph, a ``cuts`` wave with the host
+    final. Returns the answers, the ``SchedStats`` and the cache counters."""
+    from repro_torch.engine import BridgeScheduler
+    from repro_torch.obs import MetricsRegistry
+
+    sched = BridgeScheduler(engine, max_batch=4, metrics=MetricsRegistry())
+    tickets = []
+    for b in (1, 2, 4):
+        tickets += [sched.submit("warm", *rows[0]) for _ in range(b)]
+        sched.drain_all()
+    engine.load(*rows[0])
+    tickets += [sched.submit(f"t{i % 3}", *r) for i, r in enumerate(rows)]
+    sched.drain_all()
+    for wave in (3, 1):
+        tickets += [sched.submit("t", *r) for r in rows[:wave]]
+        sched.drain()
+    tickets += [sched.submit("t0", *rows[1])]
+    tickets += [sched.submit("t0", *w, op=op) for op, w in writes]
+    sched.drain_all()
+    tickets += [sched.submit("t1", *r, kind="cuts", final="host")
+                for r in rows[:3]]
+    sched.drain_all()
+    return ([t.result() for t in tickets], sched.stats.snapshot(),
+            engine.cache_info())
+
+
+def test_scheduler_on_card_equals_cpu(cuda):
+    """The same submission script through the scheduler on the card and on
+    the CPU: the same answers, ``SchedStats`` and program counters, every
+    bridges answer the planted one, and the card's dispatches launching
+    the kernels."""
+    from repro_torch.engine import BridgeEngine
+
+    graphs = [gen.planted_bridge_graph(700 - k % 3, 9_000, 3, seed=k)
+              for k in range(6)]
+    rows = [(s, d, 700 - k % 3) for k, (s, d, _) in enumerate(graphs)]
+    writes = [("insert_edges", gen.random_graph(600, 64, seed=5)),
+              ("delete_edges", (graphs[0][0][:32], graphs[0][1][:32]))]
+    reset_launch_counts()
+    card = _sched_script(BridgeEngine(), rows, writes)
+    launches = launch_counts()
+    cpu = _sched_script(BridgeEngine(device="cpu"), rows, writes)
+    assert all(_same_answer(a, b) for a, b in zip(card[0], cpu[0]))
+    assert card[1:] == cpu[1:]
+    assert card[0][7:13] == [p for _, _, p in graphs]
+    assert all(launches[k] for k in ("boruvka_round", "frontier_round",
+                                     "segment_min"))
+
+
+def test_checkpoint_restore_live_on_card_runs_no_program(cuda, tmp_path):
+    """``restore_live`` on the card: no program run (traces and cache keys
+    unchanged), every restored array on the card, the answers those of
+    the snapshot, and the restored state equal to the CPU engine's after
+    the same calls. (The random inserts join the planted blobs, so the
+    snapshot's bridges are not the planted ones.)"""
+    from repro_torch.engine import BridgeEngine
+
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=2)
+    engines = (BridgeEngine(), BridgeEngine(device="cpu"))
+    for eng, sub in zip(engines, ("card", "cpu")):
+        eng.enable_checkpoints(tmp_path / sub, every=2)
+    _engine_call(engines, "load", s, d, 3000)
+    assert _engine_call(engines, "current_analysis", "bridges") == planted
+    _engine_call(engines, "current_analysis", "cuts")
+    for k in range(2):
+        _engine_call(engines, "insert_edges",
+                     *gen.random_graph(3000, 64, seed=60 + k))
+    want = _engine_call(engines, "current_analysis", "bridges")
+    _engine_call(engines, "insert_edges", *gen.random_graph(3000, 64, seed=9))
+    card = engines[0]
+    traces, keys = card.stats.traces, set(card._cache.keys())
+    assert _engine_call(engines, "restore_live") == 2
+    assert card.stats.traces == traces and set(card._cache.keys()) == keys
+    assert all(t.is_cuda for t in card._live.full)
+    assert all(t.is_cuda for st in card._live.certs.values()
+               if st is not None for t in st)
+    assert _engine_call(engines, "current_analysis", "bridges") == want
+    assert card.snapshot()["checkpoint"] == engines[1].snapshot()["checkpoint"]
+
+
+@pytest.mark.parametrize("kill,ckpt", [({}, None), ({0: 1}, 1), ({0: 1}, None),
+                                       ({3: 0, 1: 2}, 1)],
+                         ids=["clean", "checkpoint", "recertify", "two"])
+def test_simulated_failover_on_card_equals_cpu(cuda, tmp_path, kill, ckpt):
+    """``simulate_failover_host`` on the card against the CPU, slot for
+    slot, with the same info dict; the disk store's snapshots go back onto
+    the card before they fold (the launches count the fold's rounds)."""
+    from repro_torch.checkpoint import MachineCheckpoints
+    from repro_torch.core.merge import simulate_failover_host
+    from repro_torch.runtime import FailureInjector
+
+    s, d, planted = gen.planted_bridge_graph(3000, 60_000, 5, seed=3)
+    out = []
+    for dev in (cuda, "cpu"):
+        psrc, pdst, pmask = _stacked_shards(s, d, 3000, 4, dev)
+        rows = [EdgeList(psrc[i], pdst[i], pmask[i], 3000) for i in range(4)]
+        store = (MachineCheckpoints(tmp_path / str(dev)) if ckpt else None)
+        reset_launch_counts()
+        out.append(simulate_failover_host(
+            rows, "paper", FailureInjector(kill_schedule=dict(kill)),
+            checkpoint_every=ckpt, checkpoints=store))
+        out[-1] += (launch_counts()["boruvka_round"],)
+    (alive, certs, info, launched), (calive, ccerts, cinfo, _) = out
+    assert (alive, info) == (calive, cinfo) and launched > 0
+    for a, b in zip(certs, ccerts):
+        assert a.src.is_cuda
+        for x, y in zip((a.src, a.dst, a.mask), (b.src, b.dst, b.mask)):
+            assert torch.equal(x.cpu(), y)
+    ans = certs[alive.index(info["answering"])]
+    assert bridges_dfs(*masked_arrays((ans.src, ans.dst, ans.mask)),
+                       3000) == planted
+
+
+def test_serve_failover_on_card_equals_cpu(cuda, tmp_path):
+    """The serving drill at its smoke size on the card and on the CPU: the
+    same report (minus the checkpoint directory and the latency)."""
+    import types
+
+    from repro_torch.launch.failover import serve_failover
+
+    args = dict(machines=4, steps=8, kill_machine=1, kill_at_step=2,
+                ckpt_every=1, schedule="paper", n=64, edges=512,
+                delta_edges=16, seed=0)
+    reports = []
+    for dev in (cuda, "cpu"):
+        rep = serve_failover(types.SimpleNamespace(
+            **args, ckpt_dir=str(tmp_path / str(dev))), device=dev)
+        rep.pop("ckpt_dir")
+        rep["recovery"].pop("latency_s")
+        reports.append(rep)
+    assert reports[0] == reports[1]
+    assert reports[0]["final_parity"]
+    assert reports[0]["recovery"]["source"] == "checkpoint"

@@ -23,6 +23,10 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.graph.datastructs", "repro_torch.engine",
           "repro_torch.engine.state", "repro_torch.engine.dispatch",
           "repro_torch.engine.batched", "repro_torch.engine.engine",
+          "repro_torch.engine.scheduler", "repro_torch.runtime",
+          "repro_torch.runtime.watchdog", "repro_torch.runtime.failures",
+          "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+          "repro_torch.launch", "repro_torch.launch.failover",
           "repro_torch.configs", "repro_torch.configs.sasrec",
           "repro_torch.data.pipeline", "repro_torch.interop",
           "repro_torch.kernels.embedding_bag.ops",
@@ -56,4 +60,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert "BAD []" in proc.stdout, proc.stdout
     assert "NAMED True" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 56  # every module of the package was imported
+    assert loaded >= 64  # every module of the package was imported

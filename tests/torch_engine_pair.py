@@ -5,9 +5,10 @@
 holds the answers equal; after every call the live state (every
 materialized certificate state slot for slot, and the full buffer, or,
 when the live graph is streamed, the host spill ring segment for segment)
-and the ``snapshot()`` counters, ``ingest`` among them, are held equal
-too. Tolerance: exact equality
-(every output is an integer, a boolean or a set of them).
+and the ``snapshot()`` counters, ``ingest`` and ``checkpoint`` among
+them, and the checkpoint clock (applied write ops) are held equal too.
+Tolerance: exact equality (every output is an integer, a boolean or a set
+of them).
 """
 import numpy as np
 
@@ -17,7 +18,7 @@ from repro_torch.engine import BridgeEngine as TorchEngine
 #: the counters of ``snapshot()`` the two engines must agree on
 SNAPSHOT_KEYS = ("programs", "hits", "misses", "traces", "rebuilds",
                  "rebuilds_total", "live_graph_edges", "live_bytes",
-                 "peak_live_bytes", "ingest")
+                 "peak_live_bytes", "ingest", "checkpoint")
 
 
 def same(got, want) -> bool:
@@ -89,6 +90,7 @@ class EnginePair:
             else:
                 assert_buffers_equal(tl.full, jl.full, "full")
             assert tl.rebuilds == jl.rebuilds
+        assert self.torch._write_ops == self.jax._write_ops
         js, ts = self.jax.snapshot(), self.torch.snapshot()
         for key in SNAPSHOT_KEYS:
             assert ts.get(key) == js.get(key), (key, ts.get(key), js.get(key))
