@@ -170,6 +170,46 @@ Phases, one JSON line each:
              every step by a host Tarjan over every live edge), 4,096-edge
              writes a step. Held: final parity, no post-recovery parity
              failure, recovery from the checkpoint, each counter delta 1.
+5k. serve_driver — ``launch/serve_bridges.py::main(argv, device="cuda")``
+             in-process with ``--verify``, once per workload: at the CLI's
+             own defaults (n 512, 8,192 edges, 64 queries, batch 8):
+             ``insert`` and ``churn`` with ``--analysis all``, then
+             ``multitenant`` (4 tenants, 16 deltas, all at t = 0); at the
+             full serving width (the scheduler phase's 12,500 x 1,250,000,
+             6 queries, batch 8: one 2^21-slot bucket that the jitter stays
+             inside) ``multitenant`` and ``insert --analysis all``, and
+             ``multitenant`` once more without ``--verify``, whose walls,
+             speedup and tenant p99 then hold no host Tarjan; and
+             ``ingest`` at the Fig. 2 point (``configs/bridges_dense.py::
+             CONFIG``) with 2^20-edge chunks. One line per run: the report's
+             counters (programs, hits, misses, traces, warm retraces, the
+             scheduler rollup, the ingest counters, rebuilds, peak live
+             bytes), its walls and rates (per-kind qps, p50/p95/p99,
+             speedup, edges per second) and the launches per kernel (counts
+             set to 0 just before the run and read just after). The kernel
+             calls of three verified runs are recorded and held bit for bit
+             against the plain versions (``serve_driver_kernel_check``):
+             the defaults' ``multitenant`` run's last (the scheduler
+             phase's), and the first calls of every (slots, n) shape of the
+             defaults' and the width's ``insert --analysis all``, which
+             launch all three connectivity kernels; each kernel a recorded
+             run launched must be held. The card's report at ``--smoke
+             --analysis all`` equals the port's on the CPU without the
+             clock's values (``serve_driver_hold``; the clock-free view is
+             ``tests/torch_serve_report.py``'s, shared with the CPU parity
+             tests, so this phase needs the checkout's ``tests/``).
+5l. baseline — the paper's Fig. 5 point (``benchmarks/fig5_baseline.py``:
+             V 128, E 256 / 1,024 / 4,096 / 8,128, ``random_graph(...,
+             seed=3)``): the Savage-Ja'Ja' dense-matrix baseline
+             (``core/baseline_savage_jaja.py``) against ``find_bridges(...,
+             final="device")`` and the host Tarjan, as sets of pairs, and at
+             E = 256 mask for mask against the baseline on the CPU; warm
+             times (median of 5 after a warmup) of the baseline, of Fig. 5's
+             own pipeline (``bridges_device(sparse_certificate(el))``) and
+             of ``find_bridges``; the baseline's peak bytes and its
+             ``boruvka_round`` launches; at E = 8,128 its ``boruvka_round``
+             calls held bit for bit against the plain version
+             (``baseline_kernel_check``).
 6. model kernels — ``embedding_bag`` on SASRec's full-width item table
              (2^20 x 50 float32) at the retrieval step's shape (one bag of
              50) and at the train batch's (65,536 bags of 50), every mode,
@@ -223,6 +263,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+#: the serving report's clock-free view (``torch_serve_report.py``, shared
+#: with the CPU parity tests; it imports neither torch nor JAX)
+sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 
 from repro_torch import analyze, find_bridges
 from repro_torch.connectivity.common import tour_state
@@ -234,11 +277,18 @@ from repro_torch.core.api import (
     pad_graph,
     resolve_certificate,
 )
+from repro_torch.core.baseline_savage_jaja import (
+    bridges_savage_jaja,
+    chunk_slots,
+    closure_squarings,
+)
+from repro_torch.core.bridges_device import bridges_device
 from repro_torch.core.bridges_host import bridges_dfs
 from repro_torch.core.certificate import (
     certificate_capacity,
     hybrid_certificate_ex,
     sfs_certificate_ex,
+    sparse_certificate,
     sparse_certificate_ex,
 )
 from repro_torch.core.certs import certificate_builder, certificate_names
@@ -289,6 +339,7 @@ from repro_torch.kernels.boruvka_round.ref import (
     frontier_round_ref,
 )
 from repro_torch.configs import RECSYS_SHAPES
+from repro_torch.configs.bridges_dense import CONFIG as BRIDGES_DENSE
 from repro_torch.configs.sasrec import CONFIG as SASREC
 from repro_torch.data.pipeline import recsys_batches
 from repro_torch.kernels.embedding_bag import (
@@ -322,6 +373,7 @@ from repro_torch.kernels.segment_min.kernel import (
     previous_segment_min,
 )
 from repro_torch.kernels.segment_min.ref import segment_min_ref
+from repro_torch.launch import serve_bridges
 from repro_torch.launch.failover import serve_failover
 from repro_torch.models.recsys import init_sasrec, sasrec_hidden
 from repro_torch.obs import (
@@ -332,9 +384,11 @@ from repro_torch.obs import (
 )
 from repro_torch.runtime import FailureInjector
 from repro_torch.training.steps import make_recsys_steps
+from torch_serve_report import clock_free
 
 #: the paper's Fig. 2 operating point (configs/bridges_dense.py::CONFIG)
-N_NODES, N_EDGES, N_BRIDGES, SEED = 100_000, 10_000_000, 6, 0
+N_NODES, N_EDGES = BRIDGES_DENSE.n_nodes, BRIDGES_DENSE.n_edges
+N_BRIDGES, SEED = 6, 0
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), per second
@@ -561,41 +615,48 @@ def phase_kernels(el, flush) -> dict:
             "frontier_round": f_rec}
 
 
-def launch_split(name: str, call, waited: bool, calls: int = 20) -> dict:
+def launch_split(name: str, call, waited: bool, calls: int = 20,
+                 captures: int = 3) -> dict:
     """The device timeline of ``calls`` calls of ``call()`` under
     torch.profiler, each call after a device-side wait (``WAIT_CYCLES``)
     when ``waited``, so that the host has queued the whole call before the
     card reaches it: per launch of the kernel whose name holds ``name``,
     the PyTorch fill just before it (0 where the kernel follows the wait),
-    the gap between the two and the kernel's own time; medians in ms."""
+    the gap between the two and the kernel's own time; medians in ms. A
+    capture that lacks a launch's record (CUPTI drops one now and then) is
+    taken again, at most ``captures`` times; ``captures`` in the result
+    counts those taken, and every median comes from one complete capture."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if waited:
-                torch.cuda._sleep(WAIT_CYCLES)
-            call()
-        sync()
-    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
-                   for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
-    parts = {"fill_ms": [], "gap_ms": [], "body_ms": [], "total_ms": []}
-    for (a0, a1, before), (b0, b1, kernel) in zip([(0, 0, "")] + spans,
-                                                  spans):
-        if name not in kernel:
-            continue
-        fill = "fill" in before.lower()
-        parts["fill_ms"].append((a1 - a0) / 1e3 if fill else 0.0)
-        parts["gap_ms"].append((b0 - a1) / 1e3 if fill else 0.0)
-        parts["body_ms"].append((b1 - b0) / 1e3)
-        parts["total_ms"].append((b1 - (a0 if fill else b0)) / 1e3)
-    if len(parts["body_ms"]) != calls:
-        raise AssertionError(f"{name}: {len(parts['body_ms'])} of {calls} "
-                             f"launches found in the profile")
-    return {key: statistics.median(v) for key, v in parts.items()}
+    for capture in range(1, captures + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if waited:
+                    torch.cuda._sleep(WAIT_CYCLES)
+                call()
+            sync()
+        spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                       for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        parts = {"fill_ms": [], "gap_ms": [], "body_ms": [], "total_ms": []}
+        for (a0, a1, before), (b0, b1, kernel) in zip(
+                [(0, 0, "")] + spans, spans):
+            if name not in kernel:
+                continue
+            fill = "fill" in before.lower()
+            parts["fill_ms"].append((a1 - a0) / 1e3 if fill else 0.0)
+            parts["gap_ms"].append((b0 - a1) / 1e3 if fill else 0.0)
+            parts["body_ms"].append((b1 - b0) / 1e3)
+            parts["total_ms"].append((b1 - (a0 if fill else b0)) / 1e3)
+        if len(parts["body_ms"]) == calls:
+            return {"captures": capture,
+                    **{key: statistics.median(v) for key, v in parts.items()}}
+    raise AssertionError(f"{name}: {len(parts['body_ms'])} of {calls} "
+                         f"launches found in the profile, {captures} "
+                         f"captures")
 
 
 def check_segment_min(el, flush) -> dict:
@@ -1264,18 +1325,25 @@ KERNEL_WRAPPERS = {"boruvka_round": (boruvka_ops, "boruvka_round_cuda"),
 
 
 @contextlib.contextmanager
-def recording_kernels(calls: dict, names=tuple(KERNEL_WRAPPERS), key=None):
+def recording_kernels(calls: dict, names=tuple(KERNEL_WRAPPERS), key=None,
+                      per_shape=None):
     """Each named connectivity kernel's arguments, per call, appended to
     ``calls[name]`` (with ``key``, to ``calls[key()][name]``, ``key``
     asked at each call) for the block's duration, the ops still launching
-    the kernels. The tensors are kept, not copied: the pipeline writes none
-    of a kernel's inputs in place after the call."""
+    the kernels. With ``per_shape``, only the first ``per_shape`` calls of
+    each kernel at each (slots, n) shape are kept. The tensors are kept,
+    not copied: the pipeline writes none of a kernel's inputs in place
+    after the call."""
     saved = {name: getattr(*KERNEL_WRAPPERS[name]) for name in names}
+    seen = {}
 
     def recorder(name):
         def record(*args):
             into = calls if key is None else calls.setdefault(key(), {})
-            into.setdefault(name, []).append(args)
+            shape = (name, args[0].numel(), args[-1])
+            seen[shape] = seen.get(shape, 0) + 1
+            if per_shape is None or seen[shape] <= per_shape:
+                into.setdefault(name, []).append(args)
             return saved[name](*args)
         return record
 
@@ -2181,6 +2249,9 @@ FIG10_PINNED = {"dispatches": 12, "coalesced": 59, "padded_slots": 5,
                 "writes": 4, "occupancy_x100": 492}
 #: recorded kernel calls held against the plain versions, per kernel
 SCHED_CHECK_CALLS = 48
+#: the calls kept per (slots, n) shape of a kernel in a recorded serving
+#: run: every shape the run gives a kernel is held, its kept inputs bounded
+SERVE_PER_SHAPE = 8
 #: the checkpoint phase's cadence (every second write saves)
 CKPT_EVERY = 2
 #: ``benchmarks/fig11_failover.py``'s drills: no kill, then machine 0 (a
@@ -2197,6 +2268,45 @@ FAILOVER_DRILL = {"machines": 8, "steps": 6, "kill_machine": 1,
                   "schedule": "paper", "seed": 0}
 #: the device of these phases' engines and fleets
 DEVICE = "cuda"
+
+# ------------------------------------------ the serving driver and the baseline
+#: the full serving width of the serve_driver phase: the scheduler phase's
+#: graphs (12,500 x 1,250,000, jittered by ``make_queries`` inside one
+#: 16,384-vertex, 2^21-slot bucket), 6 queries a reader, batch 8
+SERVE_WIDTH = ["--n", str(BATCH_N), "--edges", str(BATCH_E), "--queries",
+               "6", "--batch", "8"]
+#: the serve_driver phase's runs, (label, argv): the CLI's own defaults,
+#: then the full width, then the ingest drill at the Fig. 2 point with the
+#: streaming phase's 2^20-edge chunks, each with ``--verify``; and the
+#: width's ``multitenant`` without it, the host Tarjan then out of its walls
+SERVE_RUNS = [
+    ("defaults/insert", ["--analysis", "all", "--verify"]),
+    ("defaults/churn", ["--analysis", "all", "--workload", "churn",
+                        "--verify"]),
+    ("defaults/multitenant", ["--workload", "multitenant", "--tenants", "4",
+                              "--deltas", "16", "--arrival-qps", "0",
+                              "--verify"]),
+    ("width/multitenant", ["--workload", "multitenant", *SERVE_WIDTH,
+                           "--verify"]),
+    ("width/multitenant/unverified", ["--workload", "multitenant",
+                                      *SERVE_WIDTH]),
+    ("width/insert", ["--analysis", "all", *SERVE_WIDTH, "--verify"]),
+    ("fig2/ingest", ["--workload", "ingest", "--n", str(N_NODES), "--edges",
+                     str(N_EDGES), "--chunk-edges", str(1 << 20),
+                     "--verify"]),
+]
+#: the runs whose recorded kernel calls are held bit for bit, each with the
+#: calls it keeps per (slots, n) shape of a kernel (None: every call, of
+#: which the last ``SCHED_CHECK_CALLS`` are held)
+SERVE_RECORDED = {"defaults/insert": SERVE_PER_SHAPE,
+                  "defaults/multitenant": None,
+                  "width/insert": SERVE_PER_SHAPE}
+#: the argv whose report on the card must equal the port's on the CPU
+SERVE_HOLD = ["--smoke", "--analysis", "all"]
+#: ``benchmarks/fig5_baseline.py``'s point: V vertices, the edge counts,
+#: ``random_graph``'s seed; warm runs timed after a warmup
+FIG5_V, FIG5_EDGES, FIG5_SEED = 128, (256, 1024, 4096, 8128), 3
+FIG5_RUNS, FIG5_WARMUP = 5, 2
 
 
 def enclosing_span(prefixes: tuple):
@@ -2645,6 +2755,131 @@ def phase_failover_drill(smi: str) -> None:
                              f"{report['recovery']['source']}")
     if report["counters"] != {name: 1 for name in counters}:
         raise AssertionError(f"failover_drill counters {report['counters']}")
+
+
+def phase_serve_driver(smi: str) -> dict:
+    """``launch/serve_bridges.py::main`` on the card, once per workload of
+    ``SERVE_RUNS`` (module docstring, phase 5k), the recorded runs' kernel
+    calls bit for bit, and the report hold against the CPU. Returns each
+    connectivity kernel's launches summed over the runs."""
+    total = {}
+    for label, argv in SERVE_RUNS:
+        calls = {}
+        record = (recording_kernels(calls, per_shape=SERVE_RECORDED[label])
+                  if label in SERVE_RECORDED else contextlib.nullcontext())
+        with record:
+            report, rec = timed(lambda: serve_bridges.main(argv,
+                                                           device=DEVICE))
+        launches = rec["launches"]
+        emit({"phase": "serve_driver", "run": label, "argv": argv,
+              "card": smi, "seconds": rec["seconds"], "launches": launches,
+              "peak_device_bytes": rec["peak_device_bytes"],
+              **{k: v for k, v in report.items() if k != "metrics"}})
+        if not launches["boruvka_round"] or not launches["segment_min"]:
+            raise AssertionError(f"serve_driver {label}: launched {launches}")
+        if "--analysis" in argv and not launches["frontier_round"]:
+            raise AssertionError(f"serve_driver {label}: no frontier_round "
+                                 f"launch under --analysis all")
+        for name in ("boruvka_round", "frontier_round", "segment_min"):
+            total[name] = total.get(name, 0) + launches[name]
+        if label in SERVE_RECORDED:
+            if SERVE_RECORDED[label] is None:
+                # the scheduler phase's calls: the last ones of the run
+                calls = {name: args[-SCHED_CHECK_CALLS:]
+                         for name, args in calls.items()}
+            held = {r["name"] for r in check_recorded(
+                f"serve_driver {label}", calls, lambda name, args: True,
+                "serve_driver_kernel_check")}
+            missed = {name for name in KERNEL_WRAPPERS
+                      if launches[name]} - held
+            if missed:
+                raise AssertionError(f"serve_driver {label}: launched "
+                                     f"{sorted(missed)} but held no call")
+        del calls, report
+
+    card = serve_bridges.main(SERVE_HOLD, device=DEVICE)
+    cpu = serve_bridges.main(SERVE_HOLD, device="cpu")
+    held = clock_free(card, kernel_path="path") == clock_free(
+        cpu, kernel_path="path")
+    emit({"phase": "serve_driver_hold", "argv": SERVE_HOLD, "held": held,
+          "engine": {k: card["engine"][k] for k in ("programs", "hits",
+                                                     "misses", "traces")}})
+    if not held:
+        raise AssertionError("serve_driver_hold: the card's report differs "
+                             "from the CPU's")
+    return total
+
+
+def mask_pairs(src, dst, mask: np.ndarray) -> set:
+    return {(min(int(a), int(b)), max(int(a), int(b)))
+            for a, b in zip(src[mask], dst[mask])}
+
+
+def wall_ms(fn, runs: int = FIG5_RUNS, warmup: int = FIG5_WARMUP) -> float:
+    """Median host-clock milliseconds of ``fn()`` over ``runs`` calls after
+    ``warmup`` calls, each call ending in a synchronize."""
+    for _ in range(warmup):
+        fn()
+    sync_if_card(DEVICE)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        sync_if_card(DEVICE)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_baseline(smi: str) -> int:
+    """The Savage-Ja'Ja' baseline at Fig. 5's point (module docstring,
+    phase 5l). Returns its ``boruvka_round`` launches over the points."""
+    launches = 0
+    for e in FIG5_EDGES:
+        src, dst = gen.random_graph(FIG5_V, e, seed=FIG5_SEED)
+        el = EdgeList.from_arrays(src, dst, FIG5_V, device=DEVICE)
+        truth = bridges_dfs(src, dst, FIG5_V)
+        calls = {}
+        record = (recording_kernels(calls, ("boruvka_round",))
+                  if e == FIG5_EDGES[-1] else contextlib.nullcontext())
+        with record:
+            mask, rec = timed(lambda: bridges_savage_jaja(el))
+        got = mask_pairs(src, dst, mask.cpu().numpy())
+        ours = find_bridges(src, dst, FIG5_V, final="device", device=DEVICE)
+        if got != truth or ours != truth:
+            raise AssertionError(f"baseline E={e}: {sorted(got)} / "
+                                 f"find_bridges {sorted(ours)} / host "
+                                 f"Tarjan {sorted(truth)}")
+        line = {"phase": "baseline", "card": smi, "V": FIG5_V,
+                "E": len(src), "bridges": len(truth),
+                "launches": rec["launches"],
+                "peak_device_bytes": rec["peak_device_bytes"],
+                "chunk": chunk_slots(FIG5_V),
+                "squarings": closure_squarings(FIG5_V),
+                # the matrix products alone: E slots x squarings x 2 n^3
+                "matmul_flop": len(src) * closure_squarings(FIG5_V)
+                * 2 * FIG5_V ** 3}
+        if e == FIG5_EDGES[0]:
+            cpu = bridges_savage_jaja(EdgeList.from_arrays(src, dst, FIG5_V,
+                                                           device="cpu"))
+            line["max_abs_err_vs_cpu"] = require_equal(
+                f"baseline E={e} card vs CPU", mask.cpu(), cpu)
+        times = {
+            "baseline_ms": lambda: bridges_savage_jaja(el),
+            "fig5_ours_ms": lambda: bridges_device(sparse_certificate(el)),
+            "find_bridges_ms": lambda: find_bridges(
+                src, dst, FIG5_V, final="device", device=DEVICE)}
+        line.update({name: wall_ms(fn) for name, fn in times.items()})
+        line["baseline_over_ours"] = line["baseline_ms"] / line["fig5_ours_ms"]
+        emit(line)
+        if not rec["launches"]["boruvka_round"]:
+            raise AssertionError(f"baseline E={e}: no boruvka_round launch")
+        if calls and not check_recorded(f"baseline E={e}", calls,
+                                        lambda name, args: True,
+                                        "baseline_kernel_check"):
+            raise AssertionError(f"baseline E={e}: no boruvka_round call "
+                                 f"recorded")
+        launches += rec["launches"]["boruvka_round"]
+    return launches
 
 
 def right_aligned(seq: np.ndarray) -> np.ndarray:
@@ -3098,6 +3333,11 @@ def main() -> int:
     failover_launches = phase_failover(src, dst, truth, smi)
     phase_failover_drill(smi)
     emit({"phase": "serving_phases", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    driver_launches = phase_serve_driver(smi)
+    baseline_launches = phase_baseline(smi)
+    emit({"phase": "serve_driver_baseline_phases",
+          "seconds": time.perf_counter() - t0})
 
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3142,6 +3382,10 @@ def main() -> int:
                if name in sched_launches else {}),
             **({"launches_failover": failover_launches[name]}
                if name in failover_launches else {}),
+            **({"launches_serve_driver": driver_launches[name]}
+               if name in driver_launches else {}),
+            **({"launches_baseline": baseline_launches}
+               if name == "boruvka_round" else {}),
             **({"previous_kernel_ms": rec["previous_kernel_ms"]}
                if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)

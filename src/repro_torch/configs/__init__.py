@@ -1,12 +1,15 @@
 """Architecture configs of the port, copied from ``src/repro/configs``.
 
 Each ``ArchSpec`` carries the full-width config, a reduced smoke config
-(CPU-sized) and its shape set. Only SASRec has come across; the other
-architectures' configs wait for their slices.
+(CPU-sized) and its shape set. ``get`` serves the ids whose modules have
+come across: ``sasrec`` and ``bridges_dense`` (the paper's own workload).
+The language-model and GNN configs, with ``ARCH_IDS``, ``all_specs`` and
+their shape tables, wait for the slice that ports their models.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any
 
 
@@ -21,9 +24,22 @@ class ArchSpec:
     notes: str = ""
 
 
+def get(arch_id: str) -> ArchSpec:
+    arch_id = arch_id.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
+    return mod.SPEC
+
+
 RECSYS_SHAPES = {
     "train_batch": {"kind": "train", "batch": 65536},
     "serve_p99": {"kind": "serve", "batch": 512},
     "serve_bulk": {"kind": "bulk", "batch": 262144},
     "retrieval_cand": {"kind": "retrieval", "batch": 1, "n_candidates": 1_000_000},
+}
+
+PAPER_SHAPES = {
+    # the paper's Fig 2 operating point: dense graph, machines = mesh devices
+    "fig2_dense": {"kind": "bridges", "n_nodes": 100_000, "n_edges": 10_000_000},
+    # denser stress cell (|E| = 4x Fig 2) used in Fig 4's rightmost regime
+    "fig4_denser": {"kind": "bridges", "n_nodes": 100_000, "n_edges": 40_000_000},
 }

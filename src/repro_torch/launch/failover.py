@@ -142,11 +142,12 @@ def _merge_over(fleet: _Fleet, machines, schedule: str, grid):
 def serve_failover(args, *, device=None) -> dict:
     """The failover drill; returns the report dict.
 
-    ``args`` is any namespace with ``machines``, ``steps``,
-    ``kill_machine``, ``kill_at_step``, ``ckpt_every``, ``ckpt_dir``,
-    ``schedule``, ``n``, ``edges``, ``delta_edges`` and ``seed``. The
-    fleet's certificates live on the card unless ``device`` names
-    another."""
+    ``args`` is the namespace ``launch.serve_bridges.main`` builds from
+    its command line (``--workload failover``), or any namespace with
+    ``machines``, ``steps``, ``kill_machine``, ``kill_at_step``,
+    ``ckpt_every``, ``ckpt_dir``, ``schedule``, ``n``, ``edges``,
+    ``delta_edges`` and ``seed``. The fleet's certificates live on the
+    card unless ``device`` names another."""
     dev = resolve_device(device)
     tr = get_tracer()
     metrics = get_metrics()

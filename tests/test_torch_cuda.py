@@ -1321,3 +1321,47 @@ def test_serve_failover_on_card_equals_cpu(cuda, tmp_path):
     assert reports[0] == reports[1]
     assert reports[0]["final_parity"]
     assert reports[0]["recovery"]["source"] == "checkpoint"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--smoke", "--analysis", "all"],
+    ["--smoke", "--workload", "churn", "--analysis", "all"],
+    ["--smoke", "--workload", "multitenant", "--arrival-qps", "0"],
+    ["--smoke", "--workload", "ingest"]],
+    ids=["insert_all", "churn", "multitenant", "ingest"])
+def test_serve_driver_on_card_equals_cpu(cuda, argv):
+    """``launch/serve_bridges.py::main`` with ``--verify`` on the card and
+    on the CPU: the same report without the clock's values
+    (``tests/torch_serve_report.py``; ``kernel_path`` is ``cuda`` on the
+    card, ``ref`` on the CPU), and the card's run launching the kernels."""
+    from repro_torch.launch.serve_bridges import main
+
+    from torch_serve_report import clock_free
+
+    reset_launch_counts()
+    card = main([*argv, "--verify"])
+    launches = launch_counts()
+    cpu = main([*argv, "--verify"], device="cpu")
+    assert clock_free(card, kernel_path="path") == clock_free(
+        cpu, kernel_path="path")
+    assert launches["boruvka_round"] and launches["segment_min"]
+
+
+@pytest.mark.parametrize("e", [64, 256, 1128])
+def test_baseline_on_card_equals_cpu(cuda, e):
+    """The Savage-Ja'Ja' baseline at Fig. 5's smoke width (V 48, seed 3;
+    1,128 is the complete graph) on the card and on the CPU: mask for
+    mask, its answer the host Tarjan's, and its forest launching
+    ``boruvka_round``."""
+    from repro_torch.core.baseline_savage_jaja import bridges_savage_jaja
+
+    src, dst = gen.random_graph(48, e, seed=3)
+    reset_launch_counts()
+    card = bridges_savage_jaja(EdgeList.from_arrays(src, dst, 48, device=cuda))
+    assert launch_counts()["boruvka_round"] > 0
+    cpu = bridges_savage_jaja(EdgeList.from_arrays(src, dst, 48, device="cpu"))
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), cpu)
+    got = {(min(int(a), int(b)), max(int(a), int(b)))
+           for a, b in zip(src[cpu.numpy()], dst[cpu.numpy()])}
+    assert got == bridges_dfs(src, dst, 48)

@@ -27,7 +27,10 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.runtime.watchdog", "repro_torch.runtime.failures",
           "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
           "repro_torch.launch", "repro_torch.launch.failover",
+          "repro_torch.launch.serve_bridges",
+          "repro_torch.core.baseline_savage_jaja",
           "repro_torch.configs", "repro_torch.configs.sasrec",
+          "repro_torch.configs.bridges_dense",
           "repro_torch.data.pipeline", "repro_torch.interop",
           "repro_torch.kernels.embedding_bag.ops",
           "repro_torch.kernels.flash_attention.ops",
@@ -60,4 +63,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert "BAD []" in proc.stdout, proc.stdout
     assert "NAMED True" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 64  # every module of the package was imported
+    assert loaded >= 67  # every module of the package was imported
