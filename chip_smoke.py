@@ -239,6 +239,21 @@ Phases, one JSON line each:
              states against the CPU, bulk's top-k against the full scores'
              top-k, retrieval against the CPU; each step under
              torch.profiler.
+8. training — SASRec training at full width from the same weights:
+             ``make_recsys_steps(CONFIG)["train"]`` (loss, autograd,
+             AdamW, the cosine schedule) three steps at B = 1,024 on the
+             card and on the CPU, loss, grad_norm, lr, every param and
+             state leaf held (``sasrec_train_check``); then train_batch's
+             B = 65,536 x S = 50, a cold step and five warm ones (seconds,
+             tokens/s, loss, grad_norm, lr, peak bytes, launches: none of
+             the five kernels is on this path) and one warm step under
+             torch.profiler (``sasrec_train``, ``sasrec_train_summary``).
+9. recsys_mesh — SASRec's multi-card branches on a one-rank NCCL
+             ``DeviceMesh`` (1, 1) ``("data", "model")``, the weights placed
+             by ``reshard_checkpoint``: bulk and retrieval against the
+             meshless steps bit for bit (the mesh retrieval's
+             ``embedding_bag`` launch counted), ``compressed_psum_tree`` on
+             one rank against compress then decompress.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -249,6 +264,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import json
+import math
 import re
 import shutil
 import statistics
@@ -375,7 +391,12 @@ from repro_torch.kernels.segment_min.kernel import (
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.launch import serve_bridges
 from repro_torch.launch.failover import serve_failover
-from repro_torch.models.recsys import init_sasrec, sasrec_hidden
+from repro_torch.checkpoint import reshard_checkpoint
+from repro_torch.models.recsys import init_sasrec, param_specs, sasrec_hidden
+from repro_torch.models.transformer import Parallelism
+from repro_torch.optim import adamw_init, compress_int8, decompress_int8
+from repro_torch.optim.compression import compressed_psum_tree
+from repro_torch.optim.tree import tree_leaves
 from repro_torch.obs import (
     MetricsRegistry,
     disable_tracing,
@@ -412,6 +433,27 @@ SOURCE = "src/repro_torch/csrc/connectivity_rounds.cu"
 SERVE_BATCH = RECSYS_SHAPES["serve_p99"]["batch"]
 BULK_BATCH = 32_768
 N_CANDIDATES = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+#: SASRec training: train_batch's batch; the card-against-CPU check's
+#: batch and steps; the warm steps timed after the cold one
+TRAIN_BATCH = RECSYS_SHAPES["train_batch"]["batch"]
+TRAIN_CHECK_BATCH, TRAIN_CHECK_STEPS = 1024, 3
+TRAIN_WARM_STEPS = 5
+#: the train check's tolerances. Loss, grad_norm and lr: relative. Each
+#: element of a leaf: against the leaf's largest magnitude, params and
+#: master besides by a share of the lr summed over the steps (AdamW's
+#: normalised step on an element whose gradient nearly cancels:
+#: tests/test_torch_training.py). The card's and the CPU's float32 sums
+#: round differently, and a ReLU pre-activation within rounding of 0 takes
+#: the other side of the kink on one device: the users' gradients through
+#: that unit then differ by its whole term (both are float32 roundings of a
+#: gradient that jumps there; about one user a step at B = 1,024). A user's
+#: term is about 1/sqrt(B) of a dense leaf's gradient: one such flip moved
+#: dense leaves' moments by up to 1.3e-3 of the leaf's largest magnitude
+#: (tools/profile_sasrec_train.py), where rounding alone stays near 1e-6,
+#: hence the leaf tolerance of 1e-2; the table rows of that user differ by
+#: more, hence the share of a leaf's elements that may lie outside.
+TRAIN_SCALAR_RTOL, TRAIN_LEAF_TOL, TRAIN_LR_SHARE = 1e-5, 1e-2, 0.01
+TRAIN_OUTSIDE_SHARE = 1e-4
 #: attention widths of the JAX package's configs/qwen3_0_6b.py (16 query
 #: heads, 8 kv heads, head size 128); lengths cut as each case says
 ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM = 16, 8, 128
@@ -1357,9 +1399,9 @@ def recording_kernels(calls: dict, names=tuple(KERNEL_WRAPPERS), key=None,
 
 
 @contextlib.contextmanager
-def one_rank_nccl_mesh():
-    """A one-rank NCCL group (its own file store) and a one-dim
-    ``DeviceMesh`` over it, destroyed on exit."""
+def one_rank_nccl_mesh(names=("machines",)):
+    """A one-rank NCCL group (its own file store) and a ``DeviceMesh`` of
+    one rank over it, one dimension per name, destroyed on exit."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -1368,8 +1410,8 @@ def one_rank_nccl_mesh():
                                 rank=0, world_size=1,
                                 timeout=datetime.timedelta(seconds=300))
         try:
-            yield DeviceMesh("cuda", torch.arange(1),
-                             mesh_dim_names=("machines",))
+            yield DeviceMesh("cuda", torch.arange(1).reshape(
+                (1,) * len(names)), mesh_dim_names=tuple(names))
         finally:
             dist.destroy_process_group()
 
@@ -3281,6 +3323,208 @@ def phase_recsys(params) -> dict:
     return runs
 
 
+def train_step_record(train, p, opt, batch) -> tuple:
+    """One train step, launch counts zeroed just before it and read just
+    after, the peak reset before it; the new (params, state) and the
+    step's record."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    p, opt, metrics = train(p, opt, batch)
+    sync()
+    seconds = time.perf_counter() - t0
+    tokens = batch["seq"].size
+    rec = {"seconds": seconds, "tokens_per_s": tokens / seconds,
+           **{key: metrics[key].item() for key in ("loss", "grad_norm",
+                                                   "lr")},
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launch_counts()}
+    if not math.isfinite(rec["loss"]) or any(rec["launches"].values()):
+        raise AssertionError(f"train step: loss {rec['loss']}, launches "
+                             f"{rec['launches']}")
+    return p, opt, rec
+
+
+def phase_sasrec_train_check(params) -> None:
+    """``make_recsys_steps(CONFIG)["train"]`` at full width for
+    ``TRAIN_CHECK_STEPS`` steps of B = ``TRAIN_CHECK_BATCH`` on the card
+    and on the CPU from the same weights and batches: loss, grad_norm and
+    lr each step, then every param and state leaf, within the
+    ``TRAIN_*`` tolerances (at most ``TRAIN_OUTSIDE_SHARE`` of a leaf's
+    elements outside them: ReLU kinks); the step counter equal."""
+    train = make_recsys_steps(SASREC)["train"]
+    batches = recsys_batches(SASREC.n_items, TRAIN_CHECK_BATCH,
+                             SASREC.seq_len, seed=SEED)
+    card, cpu = params, params_to(params, "cpu")
+    opt_card, opt_cpu = adamw_init(card), adamw_init(cpu)
+    steps, lr_sum = [], 0.0
+    for i in range(TRAIN_CHECK_STEPS):
+        batch = batches(i)
+        card, opt_card, rec = train_step_record(train, card, opt_card, batch)
+        t0 = time.perf_counter()
+        cpu, opt_cpu, want = train(cpu, opt_cpu, batch)
+        rec["cpu_seconds"] = time.perf_counter() - t0
+        for key in ("loss", "grad_norm", "lr"):
+            rec[f"cpu_{key}"] = w = want[key].item()
+            if abs(rec[key] - w) > TRAIN_SCALAR_RTOL * abs(w):
+                raise AssertionError(f"train check step {i}: {key} "
+                                     f"{rec[key]} on the card, {w} on the "
+                                     f"CPU")
+        lr_sum += rec["cpu_lr"]
+        steps.append(rec)
+    if opt_card["step"].dtype != torch.int32 or not torch.equal(
+            opt_card["step"].cpu(), opt_cpu["step"]):
+        raise AssertionError("train check: the step counters differ")
+    worst, outside = {}, {}
+    for label, got, want, atol in (
+            ("params", card, cpu, TRAIN_LR_SHARE * lr_sum),
+            ("master", opt_card["master"], opt_cpu["master"],
+             TRAIN_LR_SHARE * lr_sum),
+            ("m", opt_card["m"], opt_cpu["m"], 0.0),
+            ("v", opt_card["v"], opt_cpu["v"], 0.0)):
+        worst[label], outside[label] = 0.0, 0
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            if a.device.type != torch.device(DEVICE).type:
+                raise AssertionError(f"train check: a {label} leaf left the "
+                                     f"card")
+            err = (a.cpu() - b).abs()
+            scale = max(float(b.abs().max()), 1e-30)
+            n_out = int((err > TRAIN_LEAF_TOL * scale + atol).sum())
+            if n_out > TRAIN_OUTSIDE_SHARE * b.numel():
+                raise AssertionError(
+                    f"train check: {n_out} elements of a {label} leaf of "
+                    f"shape {tuple(b.shape)} lie outside the tolerance "
+                    f"(largest error {float(err.max())}, largest magnitude "
+                    f"{scale})")
+            outside[label] += n_out
+            worst[label] = max(worst[label], float(err.max()) / scale)
+    emit({"phase": "sasrec_train_check", "batch": TRAIN_CHECK_BATCH,
+          "S": SASREC.seq_len, "steps": steps,
+          "max_err_over_leaf_scale": worst, "elements_outside": outside,
+          "lr_sum": lr_sum,
+          "tolerance": {"scalars_rtol": TRAIN_SCALAR_RTOL,
+                        "leaf": TRAIN_LEAF_TOL,
+                        "params_lr_share": TRAIN_LR_SHARE,
+                        "outside_share": TRAIN_OUTSIDE_SHARE}})
+
+
+def phase_sasrec_train(params, smi: str) -> None:
+    """SASRec's train step at train_batch's shape (B = 65,536, S = 50) on
+    the full-width table: a cold step, then ``TRAIN_WARM_STEPS`` warm ones
+    (``sasrec_train`` lines: seconds, tokens/s over the B x S positions,
+    loss, grad_norm, lr, peak device bytes, launches; the batch is made on
+    the host before the clock starts and copied inside the step); their
+    median (``sasrec_train_summary``); one more warm step under
+    torch.profiler. If the cold step runs out of device memory the batch
+    halves until it fits, and the lines say so."""
+    train = make_recsys_steps(SASREC)["train"]
+    batch_size, cut = TRAIN_BATCH, None
+    p, opt = params, adamw_init(params)
+    while True:
+        batches = recsys_batches(SASREC.n_items, batch_size, SASREC.seq_len,
+                                 seed=SEED)
+        try:
+            p, opt, rec = train_step_record(train, p, opt, batches(0))
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            batch_size //= 2
+            cut = (f"train_batch's batch {TRAIN_BATCH:,} cut to "
+                   f"{batch_size:,}: out of device memory")
+    shape = {"B": batch_size, "S": SASREC.seq_len, "d": SASREC.d,
+             "n_items": SASREC.n_items, "cut": cut}
+    emit({"phase": "sasrec_train", "run": "cold", "step": 0, "shape": shape,
+          "nvidia_smi": smi, **rec})
+    warm = []
+    for i in range(1, 1 + TRAIN_WARM_STEPS):
+        batch = batches(i)
+        p, opt, rec = train_step_record(train, p, opt, batch)
+        emit({"phase": "sasrec_train", "run": "warm", "step": i,
+              "shape": shape, **rec})
+        warm.append(rec)
+    median = statistics.median(r["seconds"] for r in warm)
+    emit({"phase": "sasrec_train_summary", "shape": shape,
+          "nvidia_smi": smi, "warm_steps": len(warm),
+          "warm_median_s": median,
+          "tokens_per_s": batch_size * SASREC.seq_len / median,
+          "peak_device_bytes": max(r["peak_device_bytes"] for r in warm),
+          "final_loss": warm[-1]["loss"], "step_counter": int(opt["step"])})
+    batch = batches(1 + TRAIN_WARM_STEPS)
+    phase_profile("sasrec_train", lambda: train(p, opt, batch),
+                  lambda got: math.isfinite(got[2]["loss"].item()))
+    del p, opt
+    torch.cuda.empty_cache()
+
+
+def phase_recsys_mesh(params) -> int:
+    """SASRec's multi-card branches on a one-rank NCCL ``DeviceMesh`` of
+    shape (1, 1) ``("data", "model")`` at full width, the weights placed by
+    ``reshard_checkpoint`` with ``param_specs``: ``bulk`` (B = 32,768) and
+    ``retrieval`` (10^6 candidates) through the mesh branches against the
+    meshless steps, bit for bit, seconds of each, cold then warm; ``compressed_psum_tree``
+    over the table and the position table against ``compress_int8`` then
+    ``decompress_int8``, bit for bit. Returns the mesh retrieval's
+    ``embedding_bag`` launches (launch counts set to 0 just before its warm
+    run)."""
+    bulk_seq = right_aligned(recsys_batches(
+        SASREC.n_items, BULK_BATCH, SASREC.seq_len, seed=SEED)(0)["seq"])
+    history = bulk_seq[:1]
+    candidates = np.random.default_rng(SEED).integers(
+        1, SASREC.n_items, N_CANDIDATES).astype(np.int32)
+    rec = {"phase": "recsys_mesh", "mesh": {"data": 1, "model": 1}}
+    with one_rank_nccl_mesh(("data", "model")) as mesh:
+        par = Parallelism(mesh=mesh, dp_axes=("data",), tp_axis="model")
+        placed = reshard_checkpoint(params, mesh, param_specs(SASREC, par))
+        mesh_steps, steps = (make_recsys_steps(SASREC, par),
+                             make_recsys_steps(SASREC))
+        outs = {}
+        for label, fn, args in (
+                ("bulk_mesh", mesh_steps["bulk"], (placed, bulk_seq)),
+                ("bulk", steps["bulk"], (params, bulk_seq)),
+                ("retrieval_mesh", mesh_steps["retrieval"],
+                 (placed, history, history != 0, candidates)),
+                ("retrieval", steps["retrieval"],
+                 (params, history, history != 0, candidates))):
+            for when in ("cold", "warm"):
+                outs.pop(label, None)
+                outs[label], run = run_step(label, fn, args)
+                rec[f"{label}_{when}_s"] = run["seconds"]
+            rec[f"{label}_launches"] = run["launches"]
+        for got, want in zip(outs["bulk_mesh"], outs["bulk"]):
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError("recsys_mesh: the mesh bulk top-k "
+                                     "differs from the meshless one")
+        rec["retrieval_max_abs_err"] = float(
+            (outs["retrieval_mesh"] - outs["retrieval"]).abs().max())
+        if not torch.equal(outs["retrieval_mesh"], outs["retrieval"]):
+            raise AssertionError(f"recsys_mesh: the mesh retrieval differs "
+                                 f"by {rec['retrieval_max_abs_err']}")
+        grads = {"item_emb": params["item_emb"], "pos_emb": params["pos_emb"]}
+        errs = {key: torch.full_like(g, 1e-4) for key, g in grads.items()}
+        sync()
+        t0 = time.perf_counter()
+        new_g, new_e = compressed_psum_tree(grads, errs)
+        sync()
+        rec["compressed_psum_tree_s"] = time.perf_counter() - t0
+        for key, g in grads.items():
+            q, scale, err = compress_int8(g, errs[key])
+            if not (torch.equal(new_g[key], decompress_int8(q, scale))
+                    and torch.equal(new_e[key], err)):
+                raise AssertionError(f"recsys_mesh: compressed_psum_tree of "
+                                     f"{key} on one rank is not compress "
+                                     f"then decompress")
+    launches = rec["retrieval_mesh_launches"]["embedding_bag"]
+    if launches != 1:
+        raise AssertionError("the mesh retrieval did not launch "
+                             "embedding_bag once")
+    rec.update(bulk_equal=True, retrieval_equal=True,
+               compressed_psum_tree_equal=True,
+               shape={"bulk_B": BULK_BATCH, "C": N_CANDIDATES})
+    emit(rec)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3357,6 +3601,12 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     runs.update(phase_recsys(params))
+    t0 = time.perf_counter()
+    phase_sasrec_train_check(params)
+    phase_sasrec_train(params, smi)
+    mesh_launches = phase_recsys_mesh(params)
+    emit({"phase": "training_and_mesh_phases",
+          "seconds": time.perf_counter() - t0})
 
     kernels = []
     for name, rec in checks.items():
@@ -3386,6 +3636,8 @@ def main() -> int:
                if name in driver_launches else {}),
             **({"launches_baseline": baseline_launches}
                if name == "boruvka_round" else {}),
+            **({"launches_recsys_mesh": mesh_launches}
+               if name == "embedding_bag" else {}),
             **({"previous_kernel_ms": rec["previous_kernel_ms"]}
                if "previous_kernel_ms" in rec else {})})
     print(smi, flush=True)

@@ -15,6 +15,9 @@ leaf whose manifest says ``bfloat16`` (int16 from this package, two-byte
 void records from the reference) comes back as a ``torch.bfloat16``
 tensor. Every other leaf comes back as a numpy array.
 
+Elastic restart: a checkpoint holds whole logical arrays, so
+``reshard_checkpoint`` places a restored tree onto any ``DeviceMesh``.
+
 Serving-side layers on the same atomic core: ``CheckpointPolicy`` gives
 the engine an every-K-write-ops snapshot cadence for its live state, and
 ``MachineCheckpoints`` keys independent per-machine stores for the
@@ -30,6 +33,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.launch.mesh import spec_placements
+from repro_torch.optim.tree import tree_map
 
 
 def _host_array(leaf) -> tuple[np.ndarray, str]:
@@ -274,3 +281,16 @@ class CheckpointPolicy:
         return {"saves": self.saves, "restores": self.restores,
                 "every": self.every, "last_step": self.last_step,
                 "pending_writes": self._since}
+
+
+def reshard_checkpoint(tree, mesh, specs):
+    """Elastic restart: place a host-restored tree onto a (new) mesh. Each
+    leaf becomes a ``DTensor`` on ``mesh`` laid out by its spec in
+    ``specs`` (a tree of partition specs in the port's tuple form, see
+    ``launch.mesh.spec_placements``). Every rank of the mesh calls it with
+    the same tree."""
+    def put(leaf, spec):
+        return distribute_tensor(torch.as_tensor(leaf), mesh,
+                                 spec_placements(mesh, spec))
+
+    return tree_map(put, tree, specs)

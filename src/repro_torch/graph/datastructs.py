@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 INT = torch.int32
 INF32 = int(np.iinfo(np.int32).max)
@@ -50,7 +51,12 @@ def take_fill(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     wrapped = torch.where(idx < 0, idx + n, idx)
     inside = (wrapped >= 0) & (wrapped < n)
-    rows = x[wrapped.clamp(0, n - 1)]
+    clamped = wrapped.clamp(0, n - 1)
+    # a table's rows through embedding: the same gather, but its backward
+    # sums repeated ids as sorted segments split over many threads, where
+    # indexing's backward walks each id's repeats in turn (a training
+    # batch's padding id repeats hundreds of thousands of times)
+    rows = F.embedding(clamped, x) if x.dim() == 2 else x[clamped]
     shape = inside.shape + (1,) * (x.dim() - 1)
     return torch.where(inside.reshape(shape), rows, float("nan"))
 

@@ -1,9 +1,10 @@
-"""Edge buffers and model parameters across the package boundary, as
-numpy arrays.
+"""Edge buffers, model parameters and optimizer state across the package
+boundary, as numpy arrays.
 
-The JAX package and the port share no tensors; a test hands a JAX buffer
-or parameter tree across as numpy arrays so that both packages compute on
-identical input.
+The JAX package and the port share no tensors; a test hands a JAX buffer,
+parameter tree or AdamW state across as numpy arrays so that both
+packages compute on identical input, and ``to_numpy`` hands the port's
+back for the comparison.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.datastructs import EdgeList, resolve_device
+from repro_torch.optim.tree import tree_map
 
 if TYPE_CHECKING:
     from repro_torch.models.recsys import SASRecConfig
@@ -68,3 +70,38 @@ def sasrec_params_from_numpy(tree: dict, cfg: SASRecConfig,
             "blocks": [{name: tensor(name, blk[name])
                         for name in (*BLOCK_MATRICES, "ln1", "ln2")}
                        for blk in tree["blocks"]]}
+
+
+def adamw_state_from_numpy(tree: dict, params, device=None) -> dict:
+    """The port's AdamW state from the JAX package's (``adamw_init``'s or
+    ``adamw_update``'s, given as numpy arrays): ``step`` as a 0-d int32
+    tensor, ``master``, ``m`` and ``v`` as float32 trees of ``params``'
+    structure, on ``device`` (the card unless named). Raises on a missing
+    key or a leaf whose shape is not its param's."""
+    dev = resolve_device(device)
+
+    def leaf(p, value):
+        a = np.asarray(value)
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"state leaf of shape {a.shape} for a param "
+                             f"of shape {tuple(p.shape)}")
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    state = {"step": torch.tensor(np.asarray(tree["step"]),
+                                  dtype=torch.int32, device=dev)}
+    for key in ("master", "m", "v"):
+        state[key] = tree_map(leaf, params, tree[key])
+    return state
+
+
+def to_numpy(tree):
+    """Host numpy copies of a tree of tensors (params, AdamW state,
+    metrics), structure kept; a bfloat16 leaf comes back as float32 (numpy
+    has no bfloat16; the widening is exact)."""
+    def one(x):
+        if not isinstance(x, torch.Tensor):
+            return np.asarray(x)
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+    return tree_map(one, tree)

@@ -1,5 +1,5 @@
-"""Shared model layers of the port: the chunked causal attention that the
-JAX package's models use (``src/repro/models/layers.py``).
+"""Shared model layers of the port (``src/repro/models/layers.py``): the
+chunked causal attention that the JAX package's models use, and ``shard``.
 
 Everything accumulates in float32 and stores in the input's dtype. The
 constants are the JAX layer's (-1e30 for a masked score, 1e-30 as the
@@ -9,6 +9,16 @@ not the flash-attention oracle.
 from __future__ import annotations
 
 import torch
+
+def shard(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The identity. In the reference this is ``with_sharding_constraint``,
+    a hint that GSPMD should lay ``x`` out by ``spec`` on the active mesh.
+    The port has no global array: a rank computes on its local tensor,
+    whose layout its code already chose, so there is nothing to constrain.
+    ``spec`` is a partition spec in the port's tuple form (one entry per
+    dimension: ``None``, an axis name or a tuple of names)."""
+    return x
+
 
 # static-triangle threshold: below this many chunks the (i, j <= i) block
 # triangle is one loop with only the diagonal block masked; above it the

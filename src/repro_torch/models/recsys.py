@@ -1,13 +1,25 @@
-"""SASRec (self-attentive sequential recommendation): the serving path.
+"""SASRec (self-attentive sequential recommendation), ported from
+``src/repro/models/recsys.py``: the model, its training loss (BCE on one
+sampled positive and one negative per position), online scoring against
+the whole item table (serve_p99), the chunked running top-k (serve_bulk)
+and candidate retrieval through the embedding-bag kernel (retrieval_cand).
+The parameters are a dict of tensors under the JAX package's keys
+(``item_emb``, ``pos_emb``, ``blocks[i]["wq"]`` ...); every function runs
+on the device its parameters lie on, and the loss's gradient comes from
+``torch.autograd``.
 
-The port of ``src/repro/models/recsys.py`` on one device: the model, online
-scoring against the whole item table (serve_p99), the chunked running
-top-k (serve_bulk) and candidate retrieval through the embedding-bag kernel
-(retrieval_cand). The parameters are a dict of tensors under the JAX
-package's keys (``item_emb``, ``pos_emb``, ``blocks[i]["wq"]`` ...); every
-function runs on the device its parameters lie on. The multi-card
-``shard_map`` branches and ``param_specs`` wait for the multi-card slice,
-``sasrec_train_loss`` for the training slice.
+The multi-card branches take ``par``, a ``Parallelism`` whose mesh (a
+``DeviceMesh``) has the model axis ``par.tp_axis``. The item table is
+row-sharded over that axis (``param_specs``): a rank holds only its rows,
+as a ``DTensor`` placed by ``checkpoint.reshard_checkpoint`` or as its
+local ``[n_items / shards, d]`` tensor; every other parameter is whole on
+every rank. Where the reference's ``shard_map`` splits an input over the
+data axes, a rank is given the whole input and works on its block of it,
+and it returns its block of the output. A lookup of item rows becomes the
+local hits, zeros elsewhere, summed over the model group (each row lives
+on one rank, so the sum is exact); the table is never gathered. These
+branches serve; training over a mesh is not ported, and the lookup raises
+if asked for a gradient there.
 
 Float32 products go to ``torch.matmul``, which runs them in full float32
 unless the caller enables TF32 (``torch.backends.cuda.matmul.allow_tf32``,
@@ -18,6 +30,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.graph.datastructs import resolve_device, take_fill
 from repro_torch.kernels.embedding_bag import embedding_bag
@@ -70,6 +85,89 @@ def init_sasrec(cfg: SASRecConfig, generator: torch.Generator,
     return params
 
 
+def param_specs(cfg: SASRecConfig, par) -> dict:
+    """Each parameter's partition spec (a tuple per dimension: ``None`` or
+    a mesh axis): the item table row-sharded over ``par.tp_axis``, the
+    rest replicated."""
+    tp = par.tp_axis
+    blk = {k: (None, None) for k in BLOCK_MATRICES}
+    blk["ln1"] = (None,)
+    blk["ln2"] = (None,)
+    return {
+        "item_emb": (tp, None),  # the big table: row-sharded
+        "pos_emb": (None, None),
+        "blocks": [dict(blk) for _ in range(cfg.n_blocks)],
+    }
+
+
+def _model_mesh(par):
+    """``par``'s mesh if it has the model axis, else None (the meshless
+    path, as the reference's ``tp in mesh.shape`` test)."""
+    mesh = par.mesh if par is not None else None
+    if mesh is None or par.tp_axis not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh
+
+
+def _local(params: dict) -> dict:
+    """The rank's local tensors of a parameter dict that may hold
+    ``DTensor``s."""
+    def one(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    out = {k: one(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [{k: one(v) for k, v in blk.items()}
+                     for blk in params["blocks"]]
+    return out
+
+
+def _shard(mesh, par) -> tuple:
+    """(this rank's shard index on the model axis, the shard count, the
+    model axis's process group)."""
+    return (mesh.get_local_rank(par.tp_axis), mesh.size(
+        mesh.mesh_dim_names.index(par.tp_axis)), mesh.get_group(par.tp_axis))
+
+
+def _dp_block(x, mesh, par):
+    """This rank's block of ``x`` along its first dimension, split over
+    the mesh's data axes in ``par.dp_axes``' order (row-major), as the
+    reference's ``P(dp_axes)`` splits it."""
+    names = mesh.mesh_dim_names
+    index, size = 0, 1
+    for a in par.dp_axes:
+        if a in names:
+            n = mesh.size(names.index(a))
+            index, size = index * n + mesh.get_local_rank(a), size * n
+    if x.shape[0] % size:
+        raise ValueError(f"{x.shape[0]} rows do not split over {size} "
+                         f"data-parallel ranks")
+    per = x.shape[0] // size
+    return x[index * per:(index + 1) * per]
+
+
+def _lookup(tbl: torch.Tensor, ids: torch.Tensor, par) -> torch.Tensor:
+    """Rows ``ids`` (int64) of the item table: ``take_fill`` without a
+    mesh. On a mesh ``tbl`` is this rank's rows: the hits it holds, zeros
+    elsewhere, all-reduced (SUM) over the model group; an id outside the
+    whole table reads NaN, as ``take_fill``'s."""
+    mesh = _model_mesh(par)
+    if mesh is None:
+        return take_fill(tbl, ids)
+    if torch.is_grad_enabled() and tbl.requires_grad:
+        raise NotImplementedError("training over a mesh is not ported: the "
+                                  "row-sharded lookup carries no gradient")
+    sh, nsh, group = _shard(mesh, par)
+    rows = tbl.shape[0]
+    v = rows * nsh
+    wrapped = torch.where(ids < 0, ids + v, ids)
+    loc = wrapped - sh * rows
+    hit = (loc >= 0) & (loc < rows)
+    out = torch.where(hit[..., None], tbl[loc.clamp(0, rows - 1)], 0)
+    dist.all_reduce(out, group=group)
+    inside = (wrapped >= 0) & (wrapped < v)
+    return torch.where(inside[..., None], out, float("nan"))
+
+
 def _ln(x, w, eps=1e-5):
     mu = x.mean(-1, keepdim=True)
     var = x.var(-1, keepdim=True, correction=0)  # jnp.var: population
@@ -82,10 +180,13 @@ def _ids(params, ids) -> torch.Tensor:
                            device=params["item_emb"].device)
 
 
-def sasrec_hidden(params, seq, cfg: SASRecConfig) -> torch.Tensor:
-    """seq: int32[B, S] item ids (0 = pad) -> hidden states [B, S, d]."""
+def sasrec_hidden(params, seq, cfg: SASRecConfig, par=None) -> torch.Tensor:
+    """seq: int32[B, S] item ids (0 = pad) -> hidden states [B, S, d]. On a
+    mesh: the hidden states of the sequences this rank was given."""
+    if _model_mesh(par) is not None:
+        params = _local(params)
     seq = _ids(params, seq)
-    x = take_fill(params["item_emb"], seq.long()) * (cfg.d ** 0.5)
+    x = _lookup(params["item_emb"], seq.long(), par) * (cfg.d ** 0.5)
     x = x + params["pos_emb"][None, : seq.shape[1]]
     pad = (seq == 0)[..., None]
     x = torch.where(pad, 0, x)
@@ -102,14 +203,39 @@ def sasrec_hidden(params, seq, cfg: SASRecConfig) -> torch.Tensor:
     return x
 
 
-def sasrec_user_state(params, seq, cfg: SASRecConfig) -> torch.Tensor:
+def sasrec_train_loss(params, batch, cfg: SASRecConfig,
+                      par=None) -> torch.Tensor:
+    """batch = {seq, pos, neg} each int32[B, S]; BCE on the sampled logits,
+    averaged over the positions whose positive is not padding (at least
+    one)."""
+    if _model_mesh(par) is not None:
+        params = _local(params)
+    h = sasrec_hidden(params, batch["seq"], cfg, par)
+    pos = _ids(params, batch["pos"]).long()
+    pe = _lookup(params["item_emb"], pos, par)
+    ne = _lookup(params["item_emb"], _ids(params, batch["neg"]).long(), par)
+    lp = (h * pe).sum(-1).float()
+    ln_ = (h * ne).sum(-1).float()
+    valid = (pos != 0).float()
+    loss = -(F.logsigmoid(lp) + F.logsigmoid(-ln_)) * valid
+    return loss.sum() / valid.sum().clamp_min(1.0)
+
+
+def sasrec_user_state(params, seq, cfg: SASRecConfig,
+                      par=None) -> torch.Tensor:
     """Last-position hidden state: the user's next-item query vector."""
-    return sasrec_hidden(params, seq, cfg)[:, -1]
+    return sasrec_hidden(params, seq, cfg, par)[:, -1]
 
 
-def serve_scores(params, seq, cfg: SASRecConfig) -> torch.Tensor:
-    """Online serving (serve_p99): [B, n_items] scores in one product."""
-    u = sasrec_user_state(params, seq, cfg)  # [B, d]
+def serve_scores(params, seq, cfg: SASRecConfig, par=None) -> torch.Tensor:
+    """Online serving (serve_p99): [B, n_items] scores in one product. On a
+    mesh: this rank's block, its data block of the users against its rows
+    of the table ([B / dp, n_items / shards], the reference's
+    ``P(dp, tp)``)."""
+    if _model_mesh(par) is not None:
+        params = _local(params)
+        seq = _dp_block(seq, par.mesh, par)
+    u = sasrec_user_state(params, seq, cfg, par)  # [B, d]
     return u @ params["item_emb"].T
 
 
@@ -179,12 +305,32 @@ def _chunked_topk(u, rows_tbl, id_base: int, k: int, n_chunks: int):
     return best_s, best_i
 
 
-def serve_bulk_topk(params, seq, cfg: SASRecConfig, k: int = 100,
+def serve_bulk_topk(params, seq, cfg: SASRecConfig, par=None, k: int = 100,
                     n_chunks: int = 64, n_shards: int | None = None):
     """Offline scoring (serve_bulk): a running top-k over ``n_chunks`` row
     chunks of each of ``n_shards`` row shards of the table, then one top-k
     over the shards' survivors, so the [B, n_items] scores never exist.
-    Returns (scores f32[B, k], item ids int32[B, k]), best first."""
+    Returns (scores f32[B, k], item ids int32[B, k]), best first.
+
+    On a mesh each model shard is one of the row shards (``n_shards`` is
+    not read): a rank runs the chunked top-k of its data block of the
+    users over its own rows, the shards' [B / dp, k] survivors meet in one
+    all-gather over the model group, and one top-k merges them in shard
+    order. Returns this rank's data block of the result."""
+    mesh = _model_mesh(par)
+    if mesh is not None:
+        params = _local(params)
+        u = sasrec_user_state(params, _dp_block(seq, mesh, par), cfg, par)
+        tbl = params["item_emb"]
+        sh, nsh, group = _shard(mesh, par)
+        rows = tbl.shape[0]
+        ls, li = _chunked_topk(u, tbl, sh * rows, k, n_chunks)
+        parts_s = [torch.empty_like(ls) for _ in range(nsh)]
+        parts_i = [torch.empty_like(li) for _ in range(nsh)]
+        dist.all_gather(parts_s, ls, group=group)
+        dist.all_gather(parts_i, li, group=group)
+        top_s, pos = top_k(torch.cat(parts_s, dim=-1), k)
+        return top_s, torch.gather(torch.cat(parts_i, dim=-1), 1, pos)
     u = sasrec_user_state(params, seq, cfg)  # [B, d]
     tbl = params["item_emb"]
     nsh = n_shards or 1
@@ -197,14 +343,56 @@ def serve_bulk_topk(params, seq, cfg: SASRecConfig, k: int = 100,
     return top_s, torch.gather(mi, 1, pos)
 
 
+def _bag_mean(tbl, history, mask, mesh, par) -> torch.Tensor:
+    """The mean of each history's rows under ``mask`` over the row-sharded
+    table: the embedding-bag kernel's ``sum`` of this rank's hits,
+    all-reduced over the model group, over the mask's count (at least
+    one), as the kernel's ``mean`` divides. An id outside the whole table
+    reads the NaN row once (shard 0's local id ``rows``, outside its
+    rows), as it reaches the reference's bag."""
+    sh, nsh, group = _shard(mesh, par)
+    rows = tbl.shape[0]
+    v = rows * nsh
+    ids = history.long()
+    wrapped = torch.where(ids < 0, ids + v, ids)
+    loc = wrapped - sh * rows
+    hit = (loc >= 0) & (loc < rows)
+    nan_here = ((wrapped < 0) | (wrapped >= v)) & (sh == 0)
+    idx = torch.where(hit, loc, torch.where(nan_here, rows, 0))
+    s = embedding_bag(tbl, idx.to(torch.int32), (mask & hit) | nan_here,
+                      mode="sum")
+    dist.all_reduce(s, group=group)
+    return s / mask.sum(1, keepdim=True).clamp_min(1).to(s.dtype)
+
+
 def retrieval_scores(params, history, hist_mask, candidates,
-                     cfg: SASRecConfig) -> torch.Tensor:
+                     cfg: SASRecConfig, par=None) -> torch.Tensor:
     """retrieval_cand: one (or few) users against many candidate ids. The
     user vector is the mean of the history's item rows under ``hist_mask``
     (the embedding-bag kernel on the card), dotted with each candidate's
-    row: f32[B, C]."""
+    row: f32[B, C].
+
+    On a mesh: score, then combine. A rank dots the users against the
+    candidates of its data block that its rows hold (zeros elsewhere) and
+    the [B, C / dp] scores are all-reduced over the model group, not the
+    gathered rows; it returns its data block of the columns. As in the
+    reference's body, a candidate id outside the table scores 0 there."""
+    mesh = _model_mesh(par)
+    if mesh is not None:
+        params = _local(params)
     tbl = params["item_emb"]
     mask = torch.as_tensor(hist_mask, dtype=torch.bool, device=tbl.device)
-    u = embedding_bag(tbl, _ids(params, history), mask, mode="mean")
-    ce = take_fill(tbl, _ids(params, candidates).long())  # [C, d]
-    return u.float() @ ce.T.float()
+    if mesh is None:
+        u = embedding_bag(tbl, _ids(params, history), mask, mode="mean")
+        ce = take_fill(tbl, _ids(params, candidates).long())  # [C, d]
+        return u.float() @ ce.T.float()
+    u = _bag_mean(tbl, _ids(params, history), mask, mesh, par)
+    sh, _, group = _shard(mesh, par)
+    rows = tbl.shape[0]
+    cand = _dp_block(_ids(params, candidates).long(), mesh, par)
+    loc = cand - sh * rows
+    hit = (loc >= 0) & (loc < rows)
+    ce = torch.where(hit[:, None], tbl[loc.clamp(0, rows - 1)], 0.0)
+    s = u.float() @ ce.T.float()  # [B, C / dp]
+    dist.all_reduce(s, group=group)  # combine scores, not embeddings
+    return s

@@ -1,1 +1,4 @@
-"""Step builders of the port: SASRec's serving steps so far."""
+"""Step builders of the port: SASRec's train step and serving steps."""
+from repro_torch.training.steps import make_recsys_steps
+
+__all__ = ["make_recsys_steps"]

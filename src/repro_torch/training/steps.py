@@ -1,31 +1,74 @@
-"""Step builders, ported from ``src/repro/training/steps.py``.
+"""Step builders, ported from ``src/repro/training/steps.py``: a model
+loss and AdamW as one train step, and the recsys serving steps.
 
-Only the recsys serving steps have come across. ``make_recsys_steps`` has
-no ``train`` entry: SASRec training (its loss, AdamW and the cosine
-schedule) waits for the training slice, the language-model and GNN steps
-for theirs.
+Every builder returns pure functions of (params, opt_state, batch), so a
+checkpoint of ``{"params", "opt"}`` is the whole training state. The
+gradient comes from ``torch.autograd.grad`` over the param leaves; the
+step runs on the device its params lie on. SASRec's steps are here; the
+language-model and GNN steps wait for their slices.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import recsys as rec_mod
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.optim.tree import tree_leaves, tree_unflatten
 
 
-def make_recsys_steps(cfg: rec_mod.SASRecConfig) -> dict:
-    """``serve(params, seq)`` -> [B, n_items] scores; ``bulk(params, seq)``
-    -> top-100 (scores, ids) over 64 row chunks; ``retrieval(params,
-    history, hist_mask, candidates)`` -> [B, C] scores. Each runs on the
-    device of ``params`` (``init_sasrec`` and
+def _train_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int,
+                warmup: int):
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    with ``metrics`` = ``loss``, ``grad_norm`` and ``lr``. The schedule
+    reads the step count before the update's increment, so step 0 has an
+    lr of 0."""
+
+    def step(params, opt_state, batch):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        lr_scale = cosine_schedule(opt_state["step"], warmup=warmup,
+                                   total=total_steps)
+        with torch.no_grad():
+            params, opt_state, metrics = adamw_update(
+                tree_unflatten(params, grads), opt_state, params, opt_cfg,
+                lr_scale)
+        metrics["loss"] = loss.detach()
+        return params, opt_state, metrics
+
+    return step
+
+
+def make_recsys_steps(cfg: rec_mod.SASRecConfig, par=None,
+                      opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3),
+                      total_steps: int = 10_000, warmup: int = 100) -> dict:
+    """``train(params, opt_state, batch)`` (``adamw_init(params)`` gives
+    the first state; ``recsys_batches`` the batches) -> (params,
+    opt_state, metrics); ``serve(params, seq)`` -> [B, n_items] scores;
+    ``bulk(params, seq)`` -> top-100 (scores, ids) over 64 row chunks;
+    ``retrieval(params, history, hist_mask, candidates)`` -> [B, C]
+    scores. Each runs on the device of ``params`` (``init_sasrec`` and
     ``interop.sasrec_params_from_numpy`` put them on the card unless given
-    ``device="cpu"``)."""
+    ``device="cpu"``); with ``par`` on a mesh the serving steps run its
+    multi-card branches."""
+
+    def loss_fn(params, batch):
+        return rec_mod.sasrec_train_loss(params, batch, cfg, par)
+
+    train = _train_step(loss_fn, opt_cfg, total_steps, warmup)
 
     def serve(params, seq):
-        return rec_mod.serve_scores(params, seq, cfg)
+        return rec_mod.serve_scores(params, seq, cfg, par)
 
     def bulk(params, seq):
-        return rec_mod.serve_bulk_topk(params, seq, cfg)
+        return rec_mod.serve_bulk_topk(params, seq, cfg, par)
 
     def retrieval(params, history, hist_mask, candidates):
         return rec_mod.retrieval_scores(params, history, hist_mask,
-                                        candidates, cfg)
+                                        candidates, cfg, par)
 
-    return {"serve": serve, "bulk": bulk, "retrieval": retrieval}
+    return {"train": train, "serve": serve, "bulk": bulk,
+            "retrieval": retrieval}

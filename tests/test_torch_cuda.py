@@ -77,6 +77,16 @@ from repro_torch.kernels.segment_min.kernel import (
 )
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.models import recsys as rec
+from repro_torch.checkpoint import reshard_checkpoint
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.transformer import Parallelism
+from repro_torch.optim import (
+    adamw_init,
+    compress_int8,
+    decompress_int8,
+)
+from repro_torch.optim.compression import compressed_psum_tree
+from repro_torch.optim.tree import tree_leaves
 from repro_torch.training.steps import make_recsys_steps
 
 pytestmark = pytest.mark.gpu
@@ -777,6 +787,103 @@ def test_recsys_steps_on_card_equal_cpu(cuda):
     want = steps["retrieval"](params, seq[:1], seq[:1] != 0, cand)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
                                rtol=1e-5)
+
+
+def _params_on(params: dict, device) -> dict:
+    out = {key: val.to(device) for key, val in params.items()
+           if key != "blocks"}
+    out["blocks"] = [{key: val.to(device) for key, val in blk.items()}
+                     for blk in params["blocks"]]
+    return out
+
+
+def test_train_step_on_card_equals_cpu(cuda):
+    """Three train steps at the smoke config (warmup 2, so the params
+    move) on the card against the CPU: loss, grad_norm and lr within 1e-5
+    relative; moments within 1e-5 of each leaf's largest magnitude, params
+    and master besides within 1% of the summed lr (AdamW's normalised step
+    on a near-cancelling gradient element; ``test_torch_training.py``);
+    no kernel launched (the training path reaches none)."""
+    cfg = sasrec.SMOKE
+    cpu = rec.init_sasrec(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    card = _params_on(cpu, cuda)
+    train = make_recsys_steps(cfg, warmup=2, total_steps=20)["train"]
+    opt_cpu, opt_card = adamw_init(cpu), adamw_init(card)
+    batches = recsys_batches(cfg.n_items, 8, cfg.seq_len, seed=2)
+    lr_sum = 0.0
+    reset_launch_counts()
+    for step in range(3):
+        card, opt_card, got = train(card, opt_card, batches(step))
+        cpu, opt_cpu, want = train(cpu, opt_cpu, batches(step))
+        for key in ("loss", "grad_norm", "lr"):
+            assert got[key].device.type == "cuda"
+            np.testing.assert_allclose(got[key].item(), want[key].item(),
+                                       rtol=1e-5, err_msg=key)
+        lr_sum += want["lr"].item()
+    assert not any(launch_counts().values())
+    assert opt_card["step"].dtype == torch.int32 and int(opt_card["step"]) == 3
+    for key, atol in (("m", 0.0), ("v", 0.0), ("master", 0.01 * lr_sum)):
+        for a, b in zip(tree_leaves(opt_card[key]), tree_leaves(opt_cpu[key])):
+            assert a.device.type == "cuda"
+            scale = float(b.abs().max())
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * scale + atol
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * scale + 0.01 * lr_sum
+
+
+@pytest.fixture
+def nccl_grid(cuda, tmp_path):
+    """A one-rank NCCL group and a (1, 1) ``("data", "model")`` mesh built
+    by the port's ``make_test_mesh``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_test_mesh(1, shape=(1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_recsys_mesh_on_one_rank_equals_meshless(nccl_grid):
+    """SASRec's multi-card branches on a one-rank NCCL mesh, the weights
+    placed by ``reshard_checkpoint``: serve, bulk and retrieval equal the
+    meshless steps bit for bit (retrieval's mean is the kernel's sum over
+    the same count, one IEEE division either way), the retrieval branch
+    launches ``embedding_bag`` once; ``compressed_psum_tree`` on one rank
+    is ``compress_int8`` then ``decompress_int8``."""
+    cfg = sasrec.SMOKE
+    par = Parallelism(mesh=nccl_grid, dp_axes=("data",), tp_axis="model")
+    params = rec.init_sasrec(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    placed = reshard_checkpoint(params, nccl_grid, rec.param_specs(cfg, par))
+    seq = recsys_batches(cfg.n_items, 8, cfg.seq_len, seed=1)(0)["seq"]
+    mesh_steps, steps = make_recsys_steps(cfg, par), make_recsys_steps(cfg)
+    assert torch.equal(mesh_steps["serve"](placed, seq),
+                       steps["serve"](params, seq))
+    for got, want in zip(mesh_steps["bulk"](placed, seq),
+                         steps["bulk"](params, seq)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    cand = np.arange(1, 200, dtype=np.int32)
+    reset_launch_counts()
+    got = mesh_steps["retrieval"](placed, seq[:2], seq[:2] != 0, cand)
+    assert launch_counts()["embedding_bag"] == 1
+    assert torch.equal(got, steps["retrieval"](params, seq[:2], seq[:2] != 0,
+                                               cand))
+    grads = {"a": params["item_emb"][:100] * 10, "b": params["pos_emb"]}
+    errs = {k: torch.full_like(v, 1e-4) for k, v in grads.items()}
+    new_g, new_e = compressed_psum_tree(grads, errs)
+    for key, g in grads.items():
+        q, scale, err = compress_int8(g, errs[key])
+        assert torch.equal(new_g[key], decompress_int8(q, scale))
+        assert torch.equal(new_e[key], err)
 
 
 # ------------------------------------------------- the merge across machines

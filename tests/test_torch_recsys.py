@@ -250,12 +250,14 @@ def test_retrieval_scores(weights):
 
 
 def test_make_recsys_steps(weights):
-    """Each of the three steps against the JAX package's, as
-    tests/test_arch_smoke.py drives them."""
+    """Each of the three serving steps against the JAX package's, as
+    tests/test_arch_smoke.py drives them; the train step is held in
+    tests/test_torch_training.py."""
     jparams, params = weights
     steps = make_recsys_steps(CFG)
     jsteps = j_make_steps(J_CFG, None)
-    assert set(steps) == {"serve", "bulk", "retrieval"}
+    assert set(steps) == set(jsteps) == {"train", "serve", "bulk",
+                                         "retrieval"}
     seq = _seq(batch=4, step=6)
     _close(steps["serve"](params, seq), jsteps["serve"](jparams,
                                                         jnp.asarray(seq)))

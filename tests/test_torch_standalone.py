@@ -35,7 +35,10 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.kernels.embedding_bag.ops",
           "repro_torch.kernels.flash_attention.ops",
           "repro_torch.models.layers", "repro_torch.models.recsys",
-          "repro_torch.training.steps")
+          "repro_torch.models.transformer", "repro_torch.launch.mesh",
+          "repro_torch.optim", "repro_torch.optim.adamw",
+          "repro_torch.optim.compression", "repro_torch.optim.schedule",
+          "repro_torch.optim.tree", "repro_torch.training.steps")
 
 _PROBE = """
 import importlib, pkgutil, sys
