@@ -254,6 +254,29 @@ Phases, one JSON line each:
              meshless steps bit for bit (the mesh retrieval's
              ``embedding_bag`` launch counted), ``compressed_psum_tree`` on
              one rank against compress then decompress.
+10. language model — the dense decoder (``models/transformer.py``) at
+             full width, TF32 off and bf16 products summed in full float32
+             (``allow_bf16_reduced_precision_reduction`` off: the
+             reference's dots accumulate in float32). ``lm_check``:
+             Qwen3-0.6B from one set of weights on the card and on the CPU,
+             float32 and its bfloat16 rounding, the prefill step on 4 x 16
+             seeded tokens then 8 decode steps fed the card's greedy
+             tokens; every step's logits and the cache within
+             ``LM_CHECK_TOL``, and the first step whose greedy tokens
+             differ (a reading). ``lm_serve``: ``launch/serve.py::main`` at
+             its CLI defaults (B 4, prompt 16, 32 greedy tokens) for
+             Qwen3-0.6B, Qwen3-14B (40 q heads padded to 48) and
+             StableLM-12B (d_head 160, no qk norm) in bf16, one model at a
+             time: prefill ms, decode tokens/s, parameter and peak bytes.
+             ``lm_prefill``: the prefill step at prefill_32k's S = 32,768,
+             batch cut to 1, cold and warm, then one warm call under
+             torch.profiler (device events only). ``lm_decode``: 16 greedy
+             decode steps at B = 8 (decode_32k's 128 cut) against a
+             32,768-row cache of seeded values, each step's seconds beside
+             the byte bound (cache and parameters read once), one step
+             under torch.profiler. ``lm_phases``: their seconds. Every
+             line carries the card's name and power limit and the five
+             kernels' launch counts, held at 0: the path reaches none.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -262,7 +285,10 @@ exits non-zero and prints no result. Without a card it exits 2.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
+import gc
+import io
 import json
 import math
 import re
@@ -354,7 +380,8 @@ from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
 )
-from repro_torch.configs import RECSYS_SHAPES
+from repro_torch.configs import LM_SHAPES, RECSYS_SHAPES
+from repro_torch.configs import get as lm_get
 from repro_torch.configs.bridges_dense import CONFIG as BRIDGES_DENSE
 from repro_torch.configs.sasrec import CONFIG as SASREC
 from repro_torch.data.pipeline import recsys_batches
@@ -394,9 +421,12 @@ from repro_torch.launch.failover import serve_failover
 from repro_torch.checkpoint import reshard_checkpoint
 from repro_torch.models.recsys import init_sasrec, param_specs, sasrec_hidden
 from repro_torch.models.transformer import Parallelism
+from repro_torch.models.transformer import init_cache as lm_init_cache
+from repro_torch.models.transformer import init_params as lm_init
+from repro_torch.launch import serve as serve_lm
 from repro_torch.optim import adamw_init, compress_int8, decompress_int8
 from repro_torch.optim.compression import compressed_psum_tree
-from repro_torch.optim.tree import tree_leaves
+from repro_torch.optim.tree import tree_leaves, tree_map
 from repro_torch.obs import (
     MetricsRegistry,
     disable_tracing,
@@ -404,7 +434,11 @@ from repro_torch.obs import (
     get_tracer,
 )
 from repro_torch.runtime import FailureInjector
-from repro_torch.training.steps import make_recsys_steps
+from repro_torch.training.steps import (
+    make_lm_decode_step,
+    make_lm_prefill_step,
+    make_recsys_steps,
+)
 from torch_serve_report import clock_free
 
 #: the paper's Fig. 2 operating point (configs/bridges_dense.py::CONFIG)
@@ -899,16 +933,21 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def phase_profile(label: str, call, check) -> dict:
+def phase_profile(label: str, call, check, cpu_ops: bool = True,
+                  extra=None) -> dict:
     """One warm ``call()`` under ``torch.profiler``: device busy time
     (union of kernel intervals) against the call's wall time, and device
     time by kernel. The profiler's own overhead inflates the wall time.
-    ``check(result)`` must hold."""
+    ``check(result)`` must hold. Without ``cpu_ops`` only device events
+    are recorded (a call of hundreds of thousands of launches); ``extra()``
+    (read after the call) adds keys to the line."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         got = call()
         sync()
@@ -944,6 +983,8 @@ def phase_profile(label: str, call, check) -> dict:
            "fills": summed(("Fill",)),
            "by_kernel": [{"name": n[:100], "count": c, "us": t}
                          for n, (c, t) in top]}
+    if extra is not None:
+        rec.update(extra())
     emit(rec)
     return rec
 
@@ -3525,6 +3566,298 @@ def phase_recsys_mesh(params) -> int:
     return launches
 
 
+# ------------------------------------------------- the language-model phases
+#: Qwen3-0.6B at full width (configs/qwen3_0_6b.py::CONFIG); the three dense
+#: archs lm_serve drives at full width, with launch/serve.py's CLI defaults
+#: (B 4, prompt 16, gen 32, greedy) and no further flags
+LM_CHECK_ARCH = "qwen3_0_6b"
+LM_SERVE_ARCHS = ("qwen3_0_6b", "qwen3_14b", "stablelm_12b")
+LM_SERVE_ARGV = []
+#: lm_check: B x prompt tokens, then teacher-forced decode steps; its
+#: tolerances, max |card - CPU| over the CPU tensor's largest magnitude for
+#: the logits and the cache. Float32: the card's and the CPU's sums in
+#: other orders over 28 layers (the CPU tests see 4e-7 after 2). Bfloat16:
+#: 5e-2, about twelve units of bfloat16's 2^-8 at the largest magnitude:
+#: every op rounds its result to bfloat16, and one rounding that goes the
+#: other way on one device moves what follows by a unit
+LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_STEPS = 4, 16, 8
+LM_CHECK_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: lm_prefill: prefill_32k's S = 32,768, its batch cut from 32 to 1 (the
+#: bf16 cache alone is 3.76 GB a sequence, 120 GB at 32, and the chunked
+#: triangle is 528 block updates a layer)
+LM_PREFILL_S = LM_SHAPES["prefill_32k"]["seq_len"]
+LM_PREFILL_BATCH = 1
+#: lm_decode: decode_32k's context of 32,768, its batch cut from 128 to 8
+#: (the bf16 cache is 481 GB at 128, 30.1 GB at 8); greedy steps at
+#: valid_len up to the context
+LM_DECODE_S = LM_SHAPES["decode_32k"]["seq_len"]
+LM_DECODE_BATCH, LM_DECODE_STEPS = 8, 16
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def no_launches(label: str) -> dict:
+    """The five kernels' launch counts, which must all be 0: the language
+    model reaches none of them (``chunked_causal_attention`` and
+    ``decode_attention`` are plain PyTorch, as in the JAX package)."""
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: kernels launched: {counts}")
+    return counts
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over want's largest magnitude, in float32 on the
+    CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def phase_lm_check(smi: str) -> None:
+    """Qwen3-0.6B at full width on the card and on the CPU from one set of
+    weights (drawn on the card in float32, its bfloat16 copy rounded from
+    them): the prefill step on B x prompt seeded tokens, then
+    ``LM_CHECK_STEPS`` decode steps fed the card's greedy tokens on both;
+    every step's logits and the whole cache within ``LM_CHECK_TOL``; the
+    first step whose greedy tokens differ (a reading)."""
+    base = lm_get(LM_CHECK_ARCH).config
+    p32 = lm_init(dataclasses.replace(base, param_dtype="float32"),
+                  torch.Generator(device=DEVICE).manual_seed(SEED),
+                  device=DEVICE)
+    prompts = torch.randint(
+        0, base.vocab, (LM_CHECK_BATCH, LM_CHECK_PROMPT),
+        generator=torch.Generator().manual_seed(SEED + 1), dtype=torch.int32)
+    s_max = LM_CHECK_PROMPT + LM_CHECK_STEPS
+    par = Parallelism.none()
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, param_dtype=dtype)
+        card = tree_map(lambda t: t.to(cfg.dtype), p32)
+        cpu = tree_map(lambda t: t.cpu(), card)
+        prefill = make_lm_prefill_step(cfg, par, s_max=s_max)
+        decode = make_lm_decode_step(cfg, par)
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got, got_cache = prefill(card, prompts.to(DEVICE))
+        sync()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, want_cache = prefill(cpu, prompts)
+        cpu_s = time.perf_counter() - t0
+        logits_err, cache_err, first_diff = [], [], None
+        for step in range(LM_CHECK_STEPS + 1):
+            logits_err.append(rel_err(got, want))
+            cache_err.append(max(rel_err(a, b) for a, b in
+                                 zip(got_cache, want_cache)))
+            tok = got.argmax(-1)[:, None].to(torch.int32)
+            if first_diff is None and not torch.equal(
+                    tok.cpu(), want.argmax(-1)[:, None].to(torch.int32)):
+                first_diff = step
+            if step == LM_CHECK_STEPS:
+                break
+            valid = LM_CHECK_PROMPT + step + 1
+            sync()
+            t0 = time.perf_counter()
+            got, got_cache = decode(card, got_cache, tok, valid)
+            sync()
+            card_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want, want_cache = decode(cpu, want_cache, tok.cpu(), valid)
+            cpu_s += time.perf_counter() - t0
+        rec = {"phase": "lm_check", "arch": LM_CHECK_ARCH, "dtype": dtype,
+               "batch": LM_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
+               "decode_steps": LM_CHECK_STEPS, "s_max": s_max,
+               "logits_rel_err": logits_err, "cache_rel_err": cache_err,
+               "tolerance": LM_CHECK_TOL[dtype],
+               "first_greedy_difference_step": first_diff,
+               "card_s": card_s, "cpu_s": cpu_s,
+               "param_bytes": tree_bytes(card),
+               "launches": no_launches("lm_check"), "nvidia_smi": smi}
+        emit(rec)
+        worst = max(logits_err + cache_err)
+        if not worst <= LM_CHECK_TOL[dtype]:
+            raise AssertionError(f"lm_check {dtype}: card against CPU "
+                                 f"{worst} > {LM_CHECK_TOL[dtype]}")
+        del card, cpu, got_cache, want_cache
+    del p32
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(smi: str) -> None:
+    """``launch/serve.py::main`` at its CLI defaults (B 4, prompt 16, gen
+    32, greedy) for each arch of ``LM_SERVE_ARCHS`` at full width in
+    bfloat16, one model at a time (freed before the next): its ``generate``
+    wrapped to read the prefill's and the decode loop's seconds and the
+    parameter bytes; the peak device bytes; its two printed lines; tokens
+    inside the vocabulary."""
+    real = serve_lm.generate
+    for arch in LM_SERVE_ARCHS:
+        cfg = lm_get(arch).config
+        seen = {}
+
+        def recorded(cfg_, params, *args):
+            seen["param_bytes"] = tree_bytes(params)
+            tokens, secs = real(cfg_, params, *args)
+            seen.update(secs)
+            return tokens, secs
+
+        out = io.StringIO()
+        serve_lm.generate = recorded
+        try:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                gen = serve_lm.main(["--arch", arch, *LM_SERVE_ARGV],
+                                    device=DEVICE)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            serve_lm.generate = real
+        batch, steps = gen.shape
+        if not ((gen >= 0) & (gen < cfg.vocab)).all():
+            raise AssertionError(f"lm_serve {arch}: tokens outside the "
+                                 f"vocabulary")
+        emit({"phase": "lm_serve", "arch": arch, "dtype": cfg.param_dtype,
+              "argv": ["--arch", arch, *LM_SERVE_ARGV], "batch": batch,
+              "gen": steps,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "h_padded": cfg.h_padded,
+              "d_head": cfg.d_head, "qk_norm": cfg.qk_norm,
+              "prefill_ms": seen["prefill_s"] * 1e3,
+              "decode_s": seen["decode_s"],
+              "decode_tokens_per_s": batch * steps / seen["decode_s"],
+              "wall_s": wall, "param_bytes": seen["param_bytes"],
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "printed": out.getvalue().splitlines(),
+              "launches": no_launches(f"lm_serve {arch}"),
+              "nvidia_smi": smi})
+        del gen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_lm_prefill(params, smi: str) -> None:
+    """Qwen3-0.6B's prefill step at prefill_32k's S = 32,768 (batch cut to
+    ``LM_PREFILL_BATCH``), seeded tokens: a cold call and a warm one
+    (seconds, tokens/s, peak bytes, launches), then one warm call under
+    torch.profiler (device events only: the call launches hundreds of
+    thousands of kernels) for the idle share."""
+    cfg = lm_get(LM_CHECK_ARCH).config
+    tokens = torch.randint(
+        0, cfg.vocab, (LM_PREFILL_BATCH, LM_PREFILL_S),
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 1),
+        device=DEVICE, dtype=torch.int32)
+    prefill = make_lm_prefill_step(cfg, Parallelism.none(),
+                                   s_max=LM_PREFILL_S)
+
+    def ok(out) -> bool:
+        logits, (ck, cv) = out
+        return (tuple(logits.shape) == (LM_PREFILL_BATCH, cfg.vocab)
+                and bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(ck[-1, :, -1]).all()))
+
+    seq_bytes = (2 * cfg.n_layers * LM_PREFILL_S * cfg.n_kv_heads
+                 * cfg.d_head * cfg.dtype.itemsize)
+    shape = {"B": LM_PREFILL_BATCH, "S": LM_PREFILL_S,
+             "cut": f"prefill_32k's batch "
+                    f"{LM_SHAPES['prefill_32k']['global_batch']} cut to "
+                    f"{LM_PREFILL_BATCH}: the {cfg.param_dtype} cache is "
+                    f"{seq_bytes / 1e9:.2f} GB a sequence"}
+    for run in ("cold", "warm"):
+        out, rec = timed(lambda: prefill(params, tokens))
+        if not ok(out):
+            raise AssertionError(f"lm_prefill {run}: bad output")
+        emit({"phase": "lm_prefill", "run": run, "arch": LM_CHECK_ARCH,
+              "shape": shape, **rec,
+              "tokens_per_s": LM_PREFILL_BATCH * LM_PREFILL_S
+              / rec["seconds"], "cache_bytes": tree_bytes(list(out[1])),
+              "launches": no_launches("lm_prefill"), "nvidia_smi": smi})
+        del out
+    reset_launch_counts()
+    phase_profile("lm_prefill", lambda: prefill(params, tokens), ok,
+                  cpu_ops=False, extra=lambda: {
+                      "nvidia_smi": smi,
+                      "launches": no_launches("profiled lm_prefill")})
+    torch.cuda.empty_cache()
+
+
+def phase_lm_decode(params, smi: str) -> None:
+    """Qwen3-0.6B's decode step against decode_32k's context of 32,768
+    (batch cut to ``LM_DECODE_BATCH``): the cache filled with seeded
+    normal values, then ``LM_DECODE_STEPS`` greedy steps at ``valid_len``
+    up to the context (seconds a step, tokens/s, peak bytes, launches; the
+    byte bound: cache and parameters read once), then one step under
+    torch.profiler for the idle share."""
+    cfg = lm_get(LM_CHECK_ARCH).config
+    par = Parallelism.none()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    cache = lm_init_cache(cfg, LM_DECODE_BATCH, LM_DECODE_S, device=DEVICE)
+    for c in cache:
+        c.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (LM_DECODE_BATCH, 1), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    decode = make_lm_decode_step(cfg, par)
+    cache_bytes = tree_bytes(list(cache))
+    nbytes = tree_bytes(params) + cache_bytes
+    full = LM_SHAPES["decode_32k"]["global_batch"]
+    shape = {"B": LM_DECODE_BATCH, "context": LM_DECODE_S,
+             "cut": f"decode_32k's batch {full} cut to {LM_DECODE_BATCH}: "
+                    f"the {cfg.param_dtype} cache is "
+                    f"{cache_bytes / LM_DECODE_BATCH * full / 1e9:.0f} GB "
+                    f"at {full}, {cache_bytes / 1e9:.1f} GB at "
+                    f"{LM_DECODE_BATCH}"}
+    steps = []
+    for i in range(LM_DECODE_STEPS):
+        valid = LM_DECODE_S - LM_DECODE_STEPS + 1 + i
+        (logits, cache), rec = timed(
+            lambda: decode(params, cache, tok, valid))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"lm_decode step {i}: non-finite logits")
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        steps.append({"valid_len": valid, **rec,
+                      "launches": no_launches("lm_decode")})
+    warm = statistics.median(r["seconds"] for r in steps[1:])
+    emit({"phase": "lm_decode", "arch": LM_CHECK_ARCH, "shape": shape,
+          "steps": steps, "warm_median_s": warm,
+          "tokens_per_s": LM_DECODE_BATCH / warm,
+          "cache_bytes": cache_bytes, "param_bytes": tree_bytes(params),
+          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+          "peak_device_bytes": max(r["peak_device_bytes"] for r in steps),
+          "launches": no_launches("lm_decode"), "nvidia_smi": smi})
+    reset_launch_counts()
+    phase_profile("lm_decode", lambda: decode(params, cache, tok,
+                                              LM_DECODE_S),
+                  lambda out: bool(torch.isfinite(out[0]).all()),
+                  extra=lambda: {"nvidia_smi": smi,
+                                 "launches": no_launches("profiled "
+                                                         "lm_decode")})
+    del cache
+    torch.cuda.empty_cache()
+
+
+def phase_lm(smi: str) -> None:
+    """The language-model phases, bf16 products with full float32 sums
+    (the reference's XLA dots accumulate in float32), TF32 off."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    phase_lm_check(smi)
+    phase_lm_serve(smi)
+    params = lm_init(lm_get(LM_CHECK_ARCH).config,
+                     torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    phase_lm_prefill(params, smi)
+    phase_lm_decode(params, smi)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_phases", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "launches": no_launches("lm_phases")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3607,6 +3940,9 @@ def main() -> int:
     mesh_launches = phase_recsys_mesh(params)
     emit({"phase": "training_and_mesh_phases",
           "seconds": time.perf_counter() - t0})
+    del params
+    torch.cuda.empty_cache()
+    phase_lm(smi)
 
     kernels = []
     for name, rec in checks.items():

@@ -2,9 +2,11 @@
 
 Each ``ArchSpec`` carries the full-width config, a reduced smoke config
 (CPU-sized) and its shape set. ``get`` serves the ids whose modules have
-come across: ``sasrec`` and ``bridges_dense`` (the paper's own workload).
-The language-model and GNN configs, with ``ARCH_IDS``, ``all_specs`` and
-their shape tables, wait for the slice that ports their models.
+come across: the dense language models ``qwen3_0_6b``, ``qwen3_14b`` and
+``stablelm_12b``, ``sasrec`` and ``bridges_dense`` (the paper's own
+workload). The mixture-of-experts configs wait for ``moe.py``, the GNN
+configs and ``GNN_SHAPES`` for the GNN; ``ARCH_IDS`` and ``all_specs``
+come with the last of them, so that ``all_specs`` never raises.
 """
 from __future__ import annotations
 
@@ -29,6 +31,18 @@ def get(arch_id: str) -> ArchSpec:
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.SPEC
 
+
+# ---------------------------------------------------------------- shape sets
+LM_SHAPES = {
+    "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},
+    "decode_32k": {"kind": "decode", "seq_len": 32768, "global_batch": 128},
+    "long_500k": {"kind": "decode", "seq_len": 524288, "global_batch": 1},
+}
+LM_FULL_ATTENTION_SKIPS = {
+    "long_500k": "pure full-attention arch: 524k decode needs sub-quadratic "
+    "attention (assignment: skip for full-attention archs; DESIGN.md §4)",
+}
 
 RECSYS_SHAPES = {
     "train_batch": {"kind": "train", "batch": 65536},

@@ -18,6 +18,7 @@ from repro_torch.optim.tree import tree_map
 
 if TYPE_CHECKING:
     from repro_torch.models.recsys import SASRecConfig
+    from repro_torch.models.transformer import LMConfig
 
 
 def edgelist_from_numpy(src, dst, mask, n_nodes: int, device=None) -> EdgeList:
@@ -70,6 +71,37 @@ def sasrec_params_from_numpy(tree: dict, cfg: SASRecConfig,
             "blocks": [{name: tensor(name, blk[name])
                         for name in (*BLOCK_MATRICES, "ln1", "ln2")}
                        for blk in tree["blocks"]]}
+
+
+def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> dict:
+    """The port's language-model parameters, key for key, from the JAX
+    package's ``init_params`` tree given as numpy arrays (``embed``,
+    ``final_norm``, ``layers``: a dict of stacked [L, ...] weights, ``wq``
+    [L, d, h_padded, dh] and ``wo`` [L, h_padded, dh, d]), in ``cfg``'s
+    dtype on ``device`` (the card unless named). A bfloat16 array (numpy's
+    ``ml_dtypes`` type) is widened to float32 first, exactly. Raises on a
+    missing or extra key, or a shape that ``cfg`` does not give."""
+    from repro_torch.models.transformer import param_shapes
+
+    dev = resolve_device(device)
+    shapes = param_shapes(cfg)
+
+    def tensor(name, value, want):
+        a = np.asarray(value)
+        if a.shape != want:
+            raise ValueError(f"{name}: shape {a.shape}, config gives {want}")
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.tensor(a, dtype=cfg.dtype, device=dev)
+
+    if set(tree["layers"]) != set(shapes["layers"]):
+        raise ValueError(f"layer keys {sorted(tree['layers'])}, config "
+                         f"gives {sorted(shapes['layers'])}")
+    return {"embed": tensor("embed", tree["embed"], shapes["embed"]),
+            "final_norm": tensor("final_norm", tree["final_norm"],
+                                 shapes["final_norm"]),
+            "layers": {name: tensor(name, tree["layers"][name], want)
+                       for name, want in shapes["layers"].items()}}
 
 
 def adamw_state_from_numpy(tree: dict, params, device=None) -> dict:

@@ -1,4 +1,10 @@
-"""Step builders of the port: SASRec's train step and serving steps."""
-from repro_torch.training.steps import make_recsys_steps
+"""Step builders of the port: SASRec's train step and serving steps, the
+language model's prefill and decode steps."""
+from repro_torch.training.steps import (
+    make_lm_decode_step,
+    make_lm_prefill_step,
+    make_recsys_steps,
+)
 
-__all__ = ["make_recsys_steps"]
+__all__ = ["make_lm_prefill_step", "make_lm_decode_step",
+           "make_recsys_steps"]

@@ -4,14 +4,17 @@ loss and AdamW as one train step, and the recsys serving steps.
 Every builder returns pure functions of (params, opt_state, batch), so a
 checkpoint of ``{"params", "opt"}`` is the whole training state. The
 gradient comes from ``torch.autograd.grad`` over the param leaves; the
-step runs on the device its params lie on. SASRec's steps are here; the
-language-model and GNN steps wait for their slices.
+step runs on the device its params lie on. SASRec's steps and the
+language model's serving steps (prefill, decode) are here; the language
+model's train step and the GNN steps wait for their slices.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import recsys as rec_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.optim.tree import tree_leaves, tree_unflatten
 
@@ -42,6 +45,41 @@ def _train_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int,
     return step
 
 
+# ------------------------------------------------------------------------- LM
+def make_lm_prefill_step(cfg: tfm.LMConfig, par: tfm.Parallelism,
+                         s_max: int):
+    """``prefill(params, tokens)`` -> (float32 logits [B, V] of the last
+    position, the KV cache ([L, B, s_max, KV, dh] x2, zeros past the
+    prompt)): the serving prompt phase, chunked attention without a
+    gradient."""
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        s = tokens.shape[1]
+        x, (ck, cv) = tfm.forward_with_kv(params, tokens, cfg, par)
+        logits = tfm.last_logits(params, x)
+        pad = s_max - s
+        if pad > 0:
+            ck = F.pad(ck, (0, 0, 0, 0, 0, pad))
+            cv = F.pad(cv, (0, 0, 0, 0, 0, pad))
+        return logits, (ck, cv)
+
+    return prefill
+
+
+def make_lm_decode_step(cfg: tfm.LMConfig, par: tfm.Parallelism):
+    """``decode(params, cache, tokens, valid_len)`` -> (float32 logits
+    [B, V], the cache): ``transformer.decode_step``, which writes the new
+    rows into the cache it is given."""
+
+    @torch.no_grad()
+    def decode(params, cache, tokens, valid_len):
+        return tfm.decode_step(params, cache, tokens, valid_len, cfg, par)
+
+    return decode
+
+
+# --------------------------------------------------------------------- recsys
 def make_recsys_steps(cfg: rec_mod.SASRecConfig, par=None,
                       opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3),
                       total_steps: int = 10_000, warmup: int = 100) -> dict:

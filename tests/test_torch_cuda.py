@@ -3,8 +3,8 @@ connectivity kernels bit for bit, since their outputs are integers;
 embedding_bag within 1e-5 in float32; flash_attention within 2e-5 in
 float32 and 3e-2 in bf16, the plain version's products in full float32,
 TF32 off, and both its kernels under the gate of ``ops.ATTN_GATES`` too),
-and the port's pipelines on the card against the same pipelines on the
-CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
+and the port's pipelines and models, the language model's serving path
+among them, on the card against the same on the CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
 them where there is none. On the card:
 
     python -m pytest -m gpu tests/test_torch_cuda.py
@@ -1472,3 +1472,101 @@ def test_baseline_on_card_equals_cpu(cuda, e):
     got = {(min(int(a), int(b)), max(int(a), int(b)))
            for a, b in zip(src[cpu.numpy()], dst[cpu.numpy()])}
     assert got == bridges_dfs(src, dst, 48)
+
+
+# ------------------------------------------------- the language-model path
+LM_ARCHS = ["qwen3_0_6b", "qwen3_14b", "stablelm_12b"]
+#: card against CPU, against the largest magnitude: float32 1e-5 (sums in
+#: another order), bfloat16 3e-2 (a few units of 2^-8 after two layers)
+LM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _lm_close(got, want, tol):
+    got, want = got.float().cpu(), want.float()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_smoke_on_card_equals_cpu(cuda, arch, dtype):
+    """The prefill step (4 x 16 tokens, a cache of 24) and four decode
+    steps, each fed the card's greedy tokens, on the card and on the CPU
+    from one set of weights: logits and the cache within ``LM_TOL``; no
+    kernel launched (the path reaches none of the five)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.training import make_lm_decode_step, make_lm_prefill_step
+
+    cfg = dataclasses.replace(get(arch).smoke_config, param_dtype=dtype)
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    prompts = torch.randint(0, cfg.vocab, (4, 16),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+    par = tfm.Parallelism.none()
+    prefill, decode = make_lm_prefill_step(cfg, par, 24), \
+        make_lm_decode_step(cfg, par)
+    reset_launch_counts()
+    got, got_cache = prefill(card, prompts.to(cuda))
+    want, want_cache = prefill(cpu, prompts)
+    for step in range(4):
+        assert got.device.type == cuda.type and got.dtype == torch.float32
+        _lm_close(got, want, LM_TOL[dtype])
+        for a, b in zip(got_cache, want_cache):
+            assert a.device.type == cuda.type and a.dtype == cfg.dtype
+            _lm_close(a, b, LM_TOL[dtype])
+        tok = got.argmax(-1)[:, None].to(torch.int32)
+        got, got_cache = decode(card, got_cache, tok, 17 + step)
+        want, want_cache = decode(cpu, want_cache, tok.cpu(), 17 + step)
+    assert not any(launch_counts().values())
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serve_main_on_card(cuda, arch, capsys):
+    """``launch/serve.py::main`` at ``--smoke`` on the card: its two lines,
+    tokens of the vocabulary, the same tokens under the same seed, no
+    kernel launched."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+
+    reset_launch_counts()
+    gen = serve.main(["--smoke", "--arch", arch], device=cuda)
+    assert not any(launch_counts().values())
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 2 and out[0].startswith("prefill 4x16 tok in ")
+    vocab = get(arch).smoke_config.vocab
+    assert gen.shape == (4, 32) and ((gen >= 0) & (gen < vocab)).all()
+    assert np.array_equal(serve.main(["--smoke", "--arch", arch],
+                                     device=cuda), gen)
+
+
+def test_lm_decode_cache_in_place_on_card(cuda):
+    """``decode_step`` writes into the card's cache and returns the same
+    tensors (no copy of the cache); the rows it wrote equal the CPU's,
+    rows elsewhere stay zero."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.tree import tree_map
+
+    cfg = get("qwen3_14b").smoke_config
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    par = tfm.Parallelism.none()
+    cache = tfm.init_cache(cfg, 2, 8, device=cuda)
+    ptrs = [c.data_ptr() for c in cache]
+    tok = torch.tensor([[3, 4], [5, 6]], dtype=torch.int32)
+    logits, out = tfm.decode_step(card, cache, tok.to(cuda), 5, cfg, par)
+    assert out[0] is cache[0] and out[1] is cache[1]
+    assert [c.data_ptr() for c in out] == ptrs
+    want_logits, want = tfm.decode_step(
+        cpu, tfm.init_cache(cfg, 2, 8, device="cpu"), tok, 5, cfg, par)
+    _lm_close(logits, want_logits, LM_TOL["float32"])
+    for a, b in zip(out, want):
+        _lm_close(a, b, LM_TOL["float32"])
+        rows = a.abs().amax(dim=(0, 1, 3, 4)).cpu()
+        assert rows[3:5].min() > 0
+        assert not rows[:3].any() and not rows[5:].any()

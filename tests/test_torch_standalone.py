@@ -38,7 +38,10 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.models.transformer", "repro_torch.launch.mesh",
           "repro_torch.optim", "repro_torch.optim.adamw",
           "repro_torch.optim.compression", "repro_torch.optim.schedule",
-          "repro_torch.optim.tree", "repro_torch.training.steps")
+          "repro_torch.optim.tree", "repro_torch.training.steps",
+          "repro_torch.training", "repro_torch.launch.serve",
+          "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.qwen3_14b",
+          "repro_torch.configs.stablelm_12b")
 
 _PROBE = """
 import importlib, pkgutil, sys
