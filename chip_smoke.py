@@ -277,6 +277,32 @@ Phases, one JSON line each:
              under torch.profiler. ``lm_phases``: their seconds. Every
              line carries the card's name and power limit and the five
              kernels' launch counts, held at 0: the path reaches none.
+11. language-model training and the mixture of experts — as in 10.
+             ``lm_train_check``: one ``make_lm_train_step`` step of
+             Qwen3-0.6B at full width in float32 (B 2 x S 32) on the card
+             and on the CPU from one set of weights and one AdamW state
+             (random moments, the counter at the warmup): loss,
+             grad_norm, lr and every param, master, m and v leaf within
+             ``LM_TRAIN_CHECK_TOL``. ``lm_train``:
+             ``launch/train.py::train`` at Qwen3-0.6B's full width in bf16
+             on train_4k's S = 4,096 (batch 256 cut to 8): a cold step and
+             five warm (seconds, tokens/s, peak bytes, printed lines), one
+             warm step under torch.profiler (device events only), one
+             timed in halves (``lm_train_optimizer``: the gradient against
+             AdamW's update). ``lm_train_restart``: the crash drill of
+             ``launch/train.py::main`` at ``--smoke`` (30 steps; killed at
+             17 with exit 17, restarted from 10; the same ``final_loss``).
+             ``moe_check``: one layer's ``moe_ffn_local`` at Qwen3-MoE's
+             and DBRX's full widths in bf16 on 64 tokens, card against CPU
+             (tokens routed differently counted; the rest within
+             ``MOE_CHECK_TOL``). ``moe_mesh``: ``make_moe_layer`` on a
+             one-rank NCCL (1, 1) mesh against the meshless layer, bit for
+             bit. ``moe_serve``: ``launch/serve.py::generate`` for both at
+             full width with 4 layers (B 4, prompt 16, 32 greedy tokens).
+             ``moe_train``: one donated train step of Qwen3-MoE at full
+             width with 1 layer (B 2 x S 4,096), cold and warm, with its
+             capacity drops. ``lm_train_phases``: their seconds. Every
+             line holds the five kernels' launch counts at 0.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -384,7 +410,7 @@ from repro_torch.configs import LM_SHAPES, RECSYS_SHAPES
 from repro_torch.configs import get as lm_get
 from repro_torch.configs.bridges_dense import CONFIG as BRIDGES_DENSE
 from repro_torch.configs.sasrec import CONFIG as SASREC
-from repro_torch.data.pipeline import recsys_batches
+from repro_torch.data.pipeline import SyntheticTokens, recsys_batches
 from repro_torch.kernels.embedding_bag import (
     embedding_bag,
     embedding_bag_bytes,
@@ -419,14 +445,24 @@ from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.launch import serve_bridges
 from repro_torch.launch.failover import serve_failover
 from repro_torch.checkpoint import reshard_checkpoint
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.recsys import init_sasrec, param_specs, sasrec_hidden
 from repro_torch.models.transformer import Parallelism
 from repro_torch.models.transformer import init_cache as lm_init_cache
 from repro_torch.models.transformer import init_params as lm_init
+from repro_torch.models.transformer import lm_loss
 from repro_torch.launch import serve as serve_lm
-from repro_torch.optim import adamw_init, compress_int8, decompress_int8
+from repro_torch.launch import train as train_lm
+from repro_torch.optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    compress_int8,
+    cosine_schedule,
+    decompress_int8,
+)
 from repro_torch.optim.compression import compressed_psum_tree
-from repro_torch.optim.tree import tree_leaves, tree_map
+from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.obs import (
     MetricsRegistry,
     disable_tracing,
@@ -437,6 +473,7 @@ from repro_torch.runtime import FailureInjector
 from repro_torch.training.steps import (
     make_lm_decode_step,
     make_lm_prefill_step,
+    make_lm_train_step,
     make_recsys_steps,
 )
 from torch_serve_report import clock_free
@@ -3858,6 +3895,494 @@ def phase_lm(smi: str) -> None:
           "nvidia_smi": smi, "launches": no_launches("lm_phases")})
 
 
+# ------------------------- language-model training and the MoE layers
+#: lm_train_check: one make_lm_train_step step of Qwen3-0.6B at full width
+#: in float32 on B x S seeded tokens, on the card and on the CPU from one
+#: set of weights and one AdamW state: its moments drawn at random (m
+#: normal at 1e-3, v = m^2 + 1e-6) and its counter at the schedule's
+#: warmup, so that the step runs at the full lr and AdamW's normalised
+#: step is smooth in the gradient (from zero moments it is about ±lr
+#: wherever a gradient element is within rounding of 0). The model has no
+#: kink (SiLU, no ReLU), so the tolerance is set by float32 sums in other
+#: orders over 28 layers: loss and grad_norm within 1e-4 relative, every
+#: param, master, m and v leaf within 1e-4 of its largest magnitude
+LM_TRAIN_CHECK_BATCH, LM_TRAIN_CHECK_S = 2, 32
+LM_TRAIN_CHECK_TOL = {"scalars_rtol": 1e-4, "leaf": 1e-4}
+#: lm_train: launch/train.py::train at train_4k's S = 4,096, its batch cut
+#: from 256 to 8 (AdamW's float32 state is 7.2 GB, and each layer's
+#: recomputed attention holds ten 512 MB float32 score tiles at B 8); a
+#: cold step and LM_TRAIN_WARM_STEPS warm ones
+LM_TRAIN_S = LM_SHAPES["train_4k"]["seq_len"]
+LM_TRAIN_BATCH, LM_TRAIN_WARM_STEPS = 8, 5
+#: lm_train_restart: the crash drill of launch/train.py::main at --smoke
+LM_DRILL_ARGV = ["--smoke", "--steps", "30", "--batch", "2", "--seq", "32",
+                 "--ckpt-every", "10"]
+LM_DRILL_FAIL_AT = 17
+#: the mixture-of-experts configs at full width
+MOE_ARCHS = ("qwen3_moe_235b_a22b", "dbrx_132b")
+#: moe_check: one layer's moe_ffn_local on T seeded bf16 tokens, card
+#: against CPU: the tokens whose routing (ids or kept slots) differs are
+#: counted (a reading); the others' outputs within 3e-2 of the output's
+#: largest magnitude (bf16 products round on each device, a few units of
+#: 2^-8), aux within 1e-4 relative (float32 router logits summed in other
+#: orders)
+MOE_CHECK_T = 64
+MOE_CHECK_TOL = {"out": 3e-2, "aux_rtol": 1e-4}
+#: moe_serve: launch/serve.py::generate at full width with n_layers cut to
+#: 4 (the full models are at least 470 and 264 GB of bf16 weights), B x
+#: prompt, greedy
+MOE_SERVE_LAYERS, MOE_SERVE_BATCH = 4, 4
+MOE_SERVE_PROMPT, MOE_SERVE_GEN = 16, 32
+#: moe_train: one donated make_lm_train_step step of Qwen3-MoE at full
+#: width, n_layers cut to 1 (3.1 G parameters: 6.2 GB of bf16 weights and
+#: 37 GB of float32 AdamW state), B x train_4k's S; a cold step and a warm
+#: one. DBRX's one layer is 3.8 G parameters (61 GB with its state) and
+#: stays off the card
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_S = LM_SHAPES["train_4k"]["seq_len"]
+
+
+def moments_state(params, seed: int, step: int) -> dict:
+    """lm_train_check's AdamW state of ``params`` (on their device): master
+    the params in float32, m seeded normal at 1e-3, v = m^2 + 1e-6, the
+    counter at ``step``."""
+    dev = tree_leaves(params)[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev)
+                 .mul_(1e-3), params)
+    return {"step": torch.tensor(step, dtype=torch.int32, device=dev),
+            "master": tree_map(lambda p: p.float().clone(), params),
+            "m": m, "v": tree_map(lambda a: a * a + 1e-6, m)}
+
+
+def phase_lm_train_check(smi: str) -> None:
+    """One ``make_lm_train_step`` step of Qwen3-0.6B at full width in
+    float32 on the card and on the CPU from one set of weights and one
+    AdamW state (``moments_state``): loss, grad_norm and lr, then every
+    param, master, m and v leaf, within ``LM_TRAIN_CHECK_TOL``."""
+    base = lm_get(LM_CHECK_ARCH).config
+    cfg = dataclasses.replace(base, param_dtype="float32")
+    card = lm_init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                   device=DEVICE)
+    warmup = 200  # make_lm_train_step's default
+    opt_card = moments_state(card, SEED + 3, warmup)
+    cpu = tree_map(lambda t: t.cpu(), card)
+    opt_cpu = tree_map(lambda t: t.cpu(), opt_card)
+    batch = SyntheticTokens(cfg.vocab, LM_TRAIN_CHECK_BATCH,
+                            LM_TRAIN_CHECK_S, seed=SEED).batch_at(0)
+    step = make_lm_train_step(cfg, Parallelism.none())
+    (card, opt_card, got), rec = timed(lambda: step(card, opt_card, batch))
+    t0 = time.perf_counter()
+    cpu, opt_cpu, want = step(cpu, opt_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    tol = LM_TRAIN_CHECK_TOL
+    scalars = {}
+    for key in ("loss", "grad_norm", "lr"):
+        g, w = got[key].item(), want[key].item()
+        scalars[key] = {"card": g, "cpu": w}
+        if not abs(g - w) <= tol["scalars_rtol"] * abs(w):
+            raise AssertionError(f"lm_train_check: {key} {g} on the card, "
+                                 f"{w} on the CPU")
+    if not int(opt_card["step"]) == int(opt_cpu["step"]) == warmup + 1:
+        raise AssertionError("lm_train_check: the step counters differ")
+    worst = {}
+    for label, a_tree, b_tree in (("params", card, cpu),
+                                  ("master", opt_card["master"],
+                                   opt_cpu["master"]),
+                                  ("m", opt_card["m"], opt_cpu["m"]),
+                                  ("v", opt_card["v"], opt_cpu["v"])):
+        worst[label] = 0.0
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            if a.device.type != torch.device(DEVICE).type:
+                raise AssertionError(f"lm_train_check: a {label} leaf left "
+                                     f"the card")
+            worst[label] = max(worst[label], rel_err(a, b))
+        if not worst[label] <= tol["leaf"]:
+            raise AssertionError(f"lm_train_check: a {label} leaf differs by "
+                                 f"{worst[label]} of its scale")
+    emit({"phase": "lm_train_check", "arch": LM_CHECK_ARCH,
+          "dtype": "float32", "batch": LM_TRAIN_CHECK_BATCH,
+          "S": LM_TRAIN_CHECK_S, "state_step": warmup,
+          "scalars": scalars, "max_err_over_leaf_scale": worst,
+          "tolerance": tol, "card_s": rec["seconds"], "cpu_s": cpu_s,
+          "peak_device_bytes": rec["peak_device_bytes"],
+          "param_bytes": tree_bytes(card),
+          "launches": no_launches("lm_train_check"), "nvidia_smi": smi})
+    del card, opt_card, cpu, opt_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def optimizer_share(cfg, params, opt, batch) -> dict:
+    """One train step's two halves timed apart, each to a synchronised end:
+    ``lm_loss`` and its gradient, then ``adamw_update`` (the schedule's lr
+    included), as ``_train_step`` runs them."""
+    par = Parallelism.none()
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    sync()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = lm_loss(tree_unflatten(params, leaves), batch, cfg, par)
+        grads = torch.autograd.grad(loss, leaves)
+    sync()
+    grad_s = time.perf_counter() - t0
+    del loss, leaves
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lr_scale = cosine_schedule(opt["step"], warmup=1,
+                                   total=1 + LM_TRAIN_WARM_STEPS)
+        out = adamw_update(tree_unflatten(params, list(grads)), opt, params,
+                           AdamWConfig(lr=1e-3), lr_scale)
+    sync()
+    update_s = time.perf_counter() - t0
+    if not math.isfinite(out[2]["grad_norm"].item()):
+        raise AssertionError("optimizer_share: non-finite grad norm")
+    return {"grad_s": grad_s, "adamw_update_s": update_s,
+            "adamw_share": update_s / (grad_s + update_s)}
+
+
+def phase_lm_train(smi: str) -> None:
+    """``launch/train.py::train`` at Qwen3-0.6B's full width in bf16 on
+    train_4k's S (batch cut to ``LM_TRAIN_BATCH``), batches from
+    ``SyntheticTokens``: a cold step and ``LM_TRAIN_WARM_STEPS`` warm ones
+    (seconds, tokens/s over B x S, the run's peak bytes), its printed
+    lines; then one warm step under torch.profiler (device events only)
+    and one timed in its two halves (the optimizer's share)."""
+    cfg = lm_get(LM_CHECK_ARCH).config
+    params = lm_init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    opt = adamw_init(params)
+    steps = 1 + LM_TRAIN_WARM_STEPS
+    data = SyntheticTokens(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_S, seed=SEED)
+    out = io.StringIO()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        params, opt, recs = train_lm.train(cfg, params, opt, data, steps,
+                                           log_every=1)
+    peak = torch.cuda.max_memory_allocated()
+    launches = no_launches("lm_train")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_S
+    if not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError("lm_train: a non-finite loss")
+    full = LM_SHAPES["train_4k"]["global_batch"]
+    shape = {"B": LM_TRAIN_BATCH, "S": LM_TRAIN_S,
+             "cut": f"train_4k's batch {full} cut to {LM_TRAIN_BATCH}"}
+    warm = statistics.median(r["seconds"] for r in recs[1:])
+    emit({"phase": "lm_train", "arch": LM_CHECK_ARCH,
+          "dtype": cfg.param_dtype, "shape": shape,
+          "cold_s": recs[0]["seconds"],
+          "cold_tokens_per_s": tokens / recs[0]["seconds"],
+          "warm_steps": [r["seconds"] for r in recs[1:]],
+          "warm_median_s": warm, "tokens_per_s": tokens / warm,
+          "losses": [r["loss"] for r in recs],
+          "grad_norms": [r["grad_norm"] for r in recs],
+          "peak_device_bytes": peak, "param_bytes": tree_bytes(params),
+          "state_bytes": tree_bytes(opt),
+          "printed": out.getvalue().splitlines(), "launches": launches,
+          "nvidia_smi": smi})
+    step = make_lm_train_step(cfg, Parallelism.none(), AdamWConfig(lr=1e-3),
+                              total_steps=steps, warmup=1)
+    batch = data.batch_at(steps)
+    reset_launch_counts()
+    phase_profile("lm_train", lambda: step(params, opt, batch),
+                  lambda got: math.isfinite(got[2]["loss"].item()),
+                  cpu_ops=False, extra=lambda: {
+                      "nvidia_smi": smi,
+                      "launches": no_launches("profiled lm_train")})
+    split = optimizer_share(cfg, params, opt, data.batch_at(steps + 1))
+    emit({"phase": "lm_train_optimizer", "arch": LM_CHECK_ARCH,
+          "shape": shape, **split,
+          "launches": no_launches("lm_train_optimizer"),
+          "nvidia_smi": smi})
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train_restart(smi: str) -> None:
+    """The crash drill through ``launch/train.py::main(..., device=DEVICE)``
+    at ``--smoke``: 30 steps straight; a run killed at step 17 (exit 17),
+    then the same command again: it must print ``[resume] restored step
+    10`` and the straight run's ``final_loss``."""
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for name, extra in (("straight", []),
+                            ("killed", ["--fail-at", str(LM_DRILL_FAIL_AT)]),
+                            ("restarted", [])):
+            ckpt = Path(tmp) / ("a" if name == "straight" else "b")
+            out, code = io.StringIO(), 0
+            with contextlib.redirect_stdout(out):
+                try:
+                    train_lm.main([*LM_DRILL_ARGV, "--ckpt-dir", str(ckpt),
+                                   *extra], device=DEVICE)
+                except SystemExit as exc:
+                    code = exc.code
+            runs[name] = {"exit": code, "printed": out.getvalue()
+                          .splitlines()}
+        seconds = time.perf_counter() - t0
+
+    def final(name):
+        lines = [x for x in runs[name]["printed"]
+                 if x.startswith("final_loss ")]
+        return lines[-1].split()[1] if lines else None
+
+    ok = (runs["killed"]["exit"] == 17 and runs["straight"]["exit"] == 0
+          and runs["restarted"]["exit"] == 0
+          and "[resume] restored step 10" in runs["restarted"]["printed"]
+          and final("killed") is None
+          and final("restarted") == final("straight") is not None)
+    emit({"phase": "lm_train_restart", "argv": LM_DRILL_ARGV,
+          "fail_at": LM_DRILL_FAIL_AT, "seconds": seconds,
+          "exits": {k: v["exit"] for k, v in runs.items()},
+          "final_loss": {k: final(k) for k in runs},
+          "restarted_printed": runs["restarted"]["printed"][:2],
+          "launches": no_launches("lm_train_restart"), "nvidia_smi": smi})
+    if not ok:
+        raise AssertionError(f"lm_train_restart: the drill failed: {runs}")
+
+
+def moe_layer_weights(cfg, seed: int) -> tuple:
+    """One layer's router [d, E] and experts at the reference's scales
+    (0.02; ``we_out`` 0.02 / sqrt(2 L)), bf16, drawn on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    out_sig = 0.02 / math.sqrt(2 * cfg.n_layers)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16).mul_(scale)
+
+    return (normal((d, e), 0.02), normal((e, d, f), 0.02),
+            normal((e, d, f), 0.02), normal((e, f, d), out_sig))
+
+
+def phase_moe_check(smi: str) -> dict:
+    """``moe_ffn_local`` at each MoE config's full width in bf16 on
+    ``MOE_CHECK_T`` seeded tokens, on the card and on the CPU from the same
+    weights: the routing compared token by token, the tokens routed alike
+    held within ``MOE_CHECK_TOL``, aux too. Returns the first config's
+    (x, weights) on the card, for ``moe_mesh``."""
+    kept_for_mesh = None
+    for i, arch in enumerate(MOE_ARCHS):
+        cfg = lm_get(arch).config
+        weights = moe_layer_weights(cfg, SEED + 10 + i)
+        x = torch.randn((MOE_CHECK_T, cfg.d_model), device=DEVICE,
+                        dtype=torch.bfloat16,
+                        generator=torch.Generator(device=DEVICE)
+                        .manual_seed(SEED + 20 + i))
+        e = cfg.moe.n_experts
+        kw = {"cfg": cfg.moe, "e_start": 0, "n_local": e}
+        (got, aux), rec = timed(lambda: moe_mod.moe_ffn_local(x, *weights,
+                                                              **kw))
+        launches = no_launches(f"moe_check {arch}")
+        cpu = [t.cpu() for t in (x, *weights)]
+        t0 = time.perf_counter()
+        want, aux_cpu = moe_mod.moe_ffn_local(*cpu, **kw)
+        cpu_s = time.perf_counter() - t0
+        r_card = moe_mod.route(x, weights[0], cfg.moe, 0, e)
+        r_cpu = moe_mod.route(cpu[0], cpu[1], cfg.moe, 0, e)
+        k = cfg.moe.top_k
+        same = ((r_card["ids"].cpu() == r_cpu["ids"]).all(-1)
+                & (r_card["kept"].cpu() == r_cpu["kept"]).reshape(-1, k)
+                .all(-1))
+        scale = float(want.float().abs().max())
+        err = float((got.float().cpu() - want.float())[same].abs().max()
+                    ) / scale if bool(same.any()) else float("nan")
+        aux_err = abs(aux.item() - aux_cpu.item()) / abs(aux_cpu.item())
+        emit({"phase": "moe_check", "arch": arch, "dtype": "bfloat16",
+              "T": MOE_CHECK_T, "d_model": cfg.d_model, "n_experts": e,
+              "top_k": k, "d_ff_expert": cfg.moe.d_ff_expert,
+              "capacity": r_card["cap"],
+              "dropped_pairs": int((~r_card["kept"]).sum()),
+              "tokens_routed_differently": int((~same).sum()),
+              "out_rel_err": err, "aux": aux.item(), "aux_cpu": aux_cpu.item(),
+              "aux_rel_err": aux_err, "tolerance": MOE_CHECK_TOL,
+              "card_s": rec["seconds"], "cpu_s": cpu_s,
+              "weight_bytes": tree_bytes(list(weights)),
+              "launches": launches, "nvidia_smi": smi})
+        if not (err <= MOE_CHECK_TOL["out"]
+                and aux_err <= MOE_CHECK_TOL["aux_rtol"]
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"moe_check {arch}: output {err}, aux "
+                                 f"{aux_err} against the CPU")
+        if kept_for_mesh is None:
+            kept_for_mesh = (cfg, x, weights)
+        del got, cpu, want
+    return kept_for_mesh
+
+
+def phase_moe_mesh(cfg, x, weights, smi: str) -> None:
+    """``make_moe_layer`` on a one-rank NCCL (1, 1) ``("data", "model")``
+    mesh against the meshless layer, bit for bit (every expert is the one
+    rank's, the all-reduces sum one term), cold then warm."""
+    rec = {"phase": "moe_mesh", "mesh": {"data": 1, "model": 1},
+           "T": x.shape[0], "n_experts": cfg.moe.n_experts}
+    xb = x[None]
+    with one_rank_nccl_mesh(("data", "model")) as mesh, torch.no_grad():
+        layers = {"mesh": moe_mod.make_moe_layer(mesh, ("data",), "model",
+                                                 cfg.moe),
+                  "single": moe_mod.make_moe_layer(None, (), None, cfg.moe)}
+        outs = {}
+        for label, layer in layers.items():
+            for when in ("cold", "warm"):
+                outs[label], run = timed(lambda: layer(xb, *weights))
+                rec[f"{label}_{when}_s"] = run["seconds"]
+            rec[f"{label}_launches"] = no_launches(f"moe_mesh {label}")
+    (y, aux), (y1, aux1) = outs["mesh"], outs["single"]
+    if not (torch.equal(y, y1) and torch.equal(aux, aux1)):
+        raise AssertionError("moe_mesh: the mesh layer differs from the "
+                             "meshless one")
+    rec.update(out_equal=True, aux_equal=True, nvidia_smi=smi)
+    emit(rec)
+
+
+def phase_moe_serve(smi: str) -> None:
+    """``launch/serve.py::generate`` for each MoE config at full width with
+    ``n_layers`` cut to ``MOE_SERVE_LAYERS``, bf16, seeded weights and
+    prompts, greedy: prefill ms, decode tokens/s, parameter and peak bytes,
+    tokens inside the vocabulary."""
+    for arch in MOE_ARCHS:
+        full = lm_get(arch).config
+        cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
+        params = lm_init(cfg, torch.Generator(device=DEVICE).manual_seed(
+            SEED), device=DEVICE)
+        prompts = torch.randint(
+            0, cfg.vocab, (MOE_SERVE_BATCH, MOE_SERVE_PROMPT),
+            generator=torch.Generator(device=DEVICE).manual_seed(SEED + 1),
+            device=DEVICE, dtype=torch.int32)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        tokens, secs = serve_lm.generate(cfg, params, prompts, MOE_SERVE_GEN,
+                                         0.0, None)
+        if not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+            raise AssertionError(f"moe_serve {arch}: tokens outside the "
+                                 f"vocabulary")
+        emit({"phase": "moe_serve", "arch": arch, "dtype": cfg.param_dtype,
+              "n_layers": cfg.n_layers,
+              "cut": f"n_layers {full.n_layers} cut to {cfg.n_layers}: "
+                     f"{full.n_params() * 2 / 1e9:.0f} GB of bf16 weights "
+                     f"in full",
+              "batch": MOE_SERVE_BATCH, "prompt": MOE_SERVE_PROMPT,
+              "gen": MOE_SERVE_GEN, "prefill_ms": secs["prefill_s"] * 1e3,
+              "decode_s": secs["decode_s"],
+              "decode_tokens_per_s": MOE_SERVE_BATCH * MOE_SERVE_GEN
+              / secs["decode_s"],
+              "param_bytes": tree_bytes(params),
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "tokens_in_vocab": True, "sample_row0": tokens[0][:8].tolist(),
+              "launches": no_launches(f"moe_serve {arch}"),
+              "nvidia_smi": smi})
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def counting_drops(drops: list):
+    """``moe.route`` wrapped for the block's duration: each call appends
+    the (token, choice) pairs its capacity dropped (the forward's and the
+    recomputed forward's)."""
+    real = moe_mod.route
+
+    def counted(*args, **kw):
+        r = real(*args, **kw)
+        drops.append(int((~r["kept"]).sum()))
+        return r
+
+    moe_mod.route = counted
+    try:
+        yield
+    finally:
+        moe_mod.route = real
+
+
+def phase_moe_train(smi: str) -> None:
+    """One donated ``make_lm_train_step`` step of Qwen3-MoE at full width
+    with ``n_layers`` cut to 1, bf16, B x S of ``SyntheticTokens``: a cold
+    step and a warm one (seconds, tokens/s, peak bytes, loss, grad_norm,
+    the capacity drops of the forward)."""
+    arch = MOE_ARCHS[0]
+    full = lm_get(arch).config
+    cfg = dataclasses.replace(full, n_layers=1)
+    params = lm_init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    opt = adamw_init(params)
+    step = make_lm_train_step(cfg, Parallelism.none(), donate=True)
+    data = SyntheticTokens(cfg.vocab, MOE_TRAIN_BATCH, MOE_TRAIN_S,
+                           seed=SEED)
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_S
+    dbrx = dataclasses.replace(lm_get("dbrx_132b").config, n_layers=1)
+    shape = {"B": MOE_TRAIN_BATCH, "S": MOE_TRAIN_S, "n_layers": 1,
+             "cut": f"n_layers {full.n_layers} cut to 1 and train_4k's "
+                    f"batch {LM_SHAPES['train_4k']['global_batch']} to "
+                    f"{MOE_TRAIN_BATCH}: the one-layer model's bf16 params "
+                    f"and float32 AdamW state are "
+                    f"{cfg.n_params() * 14 / 1e9:.1f} GB; DBRX's one-layer "
+                    f"model's {dbrx.n_params() * 14 / 1e9:.1f} GB, before "
+                    f"its gradients and activations, stays off the card",
+             "capacity": moe_mod.capacity(tokens, cfg.moe)}
+    param_bytes = tree_bytes(params)
+    for i, run in enumerate(("cold", "warm")):
+        drops = []
+        with counting_drops(drops):
+            (params, opt, metrics), rec = timed(
+                lambda: step(params, opt, data.batch_at(i)))
+        loss = metrics["loss"].item()
+        if not math.isfinite(loss):
+            raise AssertionError(f"moe_train {run}: loss {loss}")
+        emit({"phase": "moe_train", "run": run, "arch": arch,
+              "dtype": cfg.param_dtype, "shape": shape,
+              "seconds": rec["seconds"],
+              "tokens_per_s": tokens / rec["seconds"], "loss": loss,
+              "grad_norm": metrics["grad_norm"].item(),
+              "dropped_pairs": drops[0], "pairs": tokens * cfg.moe.top_k,
+              "route_calls": len(drops),
+              "peak_device_bytes": rec["peak_device_bytes"],
+              "param_bytes": param_bytes, "state_bytes": tree_bytes(opt),
+              "launches": no_launches(f"moe_train {run}"),
+              "nvidia_smi": smi})
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train_moe(smi: str) -> None:
+    """The language-model training and mixture-of-experts phases, as
+    ``phase_lm`` sets the card (TF32 off, bf16 products summed in float32),
+    then their seconds (``lm_train_phases``)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    seconds = {}
+    for name, fn in (("lm_train_check", phase_lm_train_check),
+                     ("lm_train", phase_lm_train),
+                     ("lm_train_restart", phase_lm_train_restart)):
+        t1 = time.perf_counter()
+        fn(smi)
+        seconds[name] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mesh_args = phase_moe_check(smi)
+    seconds["moe_check"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    phase_moe_mesh(*mesh_args, smi)
+    seconds["moe_mesh"] = time.perf_counter() - t1
+    del mesh_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, fn in (("moe_serve", phase_moe_serve),
+                     ("moe_train", phase_moe_train)):
+        t1 = time.perf_counter()
+        fn(smi)
+        seconds[name] = time.perf_counter() - t1
+    emit({"phase": "lm_train_phases", "seconds": time.perf_counter() - t0,
+          "by_phase": seconds, "nvidia_smi": smi,
+          "launches": no_launches("lm_train_phases")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3943,6 +4468,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_lm(smi)
+    phase_lm_train_moe(smi)
 
     kernels = []
     for name, rec in checks.items():

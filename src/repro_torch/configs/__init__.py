@@ -3,10 +3,11 @@
 Each ``ArchSpec`` carries the full-width config, a reduced smoke config
 (CPU-sized) and its shape set. ``get`` serves the ids whose modules have
 come across: the dense language models ``qwen3_0_6b``, ``qwen3_14b`` and
-``stablelm_12b``, ``sasrec`` and ``bridges_dense`` (the paper's own
-workload). The mixture-of-experts configs wait for ``moe.py``, the GNN
-configs and ``GNN_SHAPES`` for the GNN; ``ARCH_IDS`` and ``all_specs``
-come with the last of them, so that ``all_specs`` never raises.
+``stablelm_12b``, the mixture-of-experts language models ``dbrx_132b`` and
+``qwen3_moe_235b_a22b``, ``sasrec`` and ``bridges_dense`` (the paper's own
+workload). The GNN configs and ``GNN_SHAPES`` wait for the GNN;
+``ARCH_IDS`` and ``all_specs`` come with them, so that ``all_specs``
+never raises.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """Models of the port. SASRec (``recsys``): serving, its training loss and
-its multi-card branches; the dense decoder-only language models
+its multi-card branches; the decoder-only language models
 (``transformer``): forward, prefill with the KV stacks, loss and the
-decode step. The mixture-of-experts layers and the graph networks wait
-for their slices."""
+decode step, dense or with the mixture-of-experts layer of ``moe``
+(``MoEConfig``, ``moe_ffn_local``, ``make_moe_layer``). Import the
+submodules directly, as in the reference. The graph networks wait for
+their slice."""

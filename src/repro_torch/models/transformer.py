@@ -1,6 +1,7 @@
 """The decoder-only language models (``src/repro/models/transformer.py``):
-the dense decoder of the qwen3 and stablelm configs, its prefill with the
-KV stacks, its loss, and the decode step against a KV cache.
+the decoder of the qwen3, stablelm, dbrx and qwen3-moe configs, its
+prefill with the KV stacks, its loss, and the decode step against a KV
+cache.
 
 The parameters are a dict of tensors under the reference's keys, the layer
 weights stacked over layers (``params["layers"]["wq"]``: [L, d, h_padded,
@@ -11,9 +12,11 @@ runs on the device its parameters lie on; ``init_params`` and
 ``init_cache`` put them on the card unless given ``device="cpu"``.
 
 The reference's ``shard`` calls (``with_sharding_constraint``) are the
-identity in the port (``models/layers.py::shard``) and are left out. The
-mixture-of-experts layers wait for ``moe.py``: a config with ``moe``
-raises ``NotImplementedError``.
+identity in the port (``models/layers.py::shard``) and are left out. A
+config with ``moe`` replaces each layer's MLP by ``models/moe.py``'s layer
+(its experts ``we_gate``, ``we_in``, ``we_out`` and its ``router`` in the
+layer stack); the layers' aux load-balance losses, summed in float32, come
+out of ``forward`` and into ``lm_loss``.
 
 Float32 products go to ``torch.matmul``, which runs them in full float32
 unless the caller enables TF32 (``torch.backends.cuda.matmul.allow_tf32``,
@@ -38,9 +41,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope,
 )
-
-_MOE_MISSING = ("mixture-of-experts layers are not ported yet (ROADMAP "
-                "queue A 11.3: moe.py)")
+from repro_torch.models.moe import MoEConfig, make_moe_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +76,7 @@ class LMConfig:
     d_head: int = 128
     qk_norm: bool = False
     rope_theta: float = 1e6
-    moe: Any = None
+    moe: MoEConfig | None = None
     param_dtype: str = "bfloat16"
     attn_chunk: int = 1024
     loss_chunks: int = 8
@@ -144,8 +145,6 @@ class LMConfig:
 # --------------------------------------------------------------------- params
 def param_shapes(cfg: LMConfig) -> dict:
     """Each parameter's shape, keyed as ``init_params``' tree."""
-    if cfg.moe:
-        raise NotImplementedError(_MOE_MISSING)
     d, dh, L = cfg.d_model, cfg.d_head, cfg.n_layers
     h, kv, f = cfg.h_padded, cfg.n_kv_heads, cfg.d_ff
     layers = {"attn_norm": (L, d), "wq": (L, d, h, dh),
@@ -154,7 +153,12 @@ def param_shapes(cfg: LMConfig) -> dict:
     if cfg.qk_norm:
         layers["q_norm"] = (L, dh)
         layers["k_norm"] = (L, dh)
-    layers.update(w_gate=(L, d, f), w_in=(L, d, f), w_out=(L, f, d))
+    if cfg.moe:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layers.update(router=(L, d, e), we_gate=(L, e, d, fe),
+                      we_in=(L, e, d, fe), we_out=(L, e, fe, d))
+    else:
+        layers.update(w_gate=(L, d, f), w_in=(L, d, f), w_out=(L, f, d))
     return {"embed": (cfg.vocab, d), "final_norm": (d,), "layers": layers}
 
 
@@ -164,7 +168,9 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     output projections 0.02 / sqrt(2 L); norms at one), in ``cfg``'s dtype,
     from ``generator`` on its own device, then moved to ``device`` (the card
     unless named). The draws come in the reference's order (``wq``, ``wk``,
-    ``wv``, ``wo``, ``w_gate``, ``w_in``, ``w_out``, ``embed``)."""
+    ``wv``, ``wo``, then ``w_gate``, ``w_in``, ``w_out`` or, for a
+    mixture of experts, ``router``, ``we_gate``, ``we_in``, ``we_out``; then
+    ``embed``)."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
     dt = cfg.dtype
@@ -186,9 +192,11 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layers["q_norm"] = ones(ls["q_norm"])
         layers["k_norm"] = ones(ls["k_norm"])
-    layers["w_gate"] = normal(ls["w_gate"], sig)
-    layers["w_in"] = normal(ls["w_in"], sig)
-    layers["w_out"] = normal(ls["w_out"], out_sig)
+    ffn = (("router", sig), ("we_gate", sig), ("we_in", sig),
+           ("we_out", out_sig)) if cfg.moe else (
+        ("w_gate", sig), ("w_in", sig), ("w_out", out_sig))
+    for name, scale in ffn:
+        layers[name] = normal(ls[name], scale)
     return {"embed": normal(shapes["embed"], sig),
             "final_norm": ones(shapes["final_norm"]), "layers": layers}
 
@@ -268,9 +276,10 @@ def _attention_block(x, lp, cfg: LMConfig, par: Parallelism, positions,
 def _make_layer_fn(cfg: LMConfig, par: Parallelism, decode: bool,
                    return_kv: bool = False, differentiable: bool = True):
     """``layer(x, positions, lp, cache=None, valid_len=None)`` -> (x,
-    this layer's (k, v) or its cache pair, or None)."""
-    if cfg.moe:
-        raise NotImplementedError(_MOE_MISSING)
+    this layer's (k, v) or its cache pair, or None; the layer's float32 aux
+    loss, or None for a dense MLP)."""
+    moe_layer = (make_moe_layer(par.mesh, par.dp_axes, par.tp_axis, cfg.moe)
+                 if cfg.moe else None)
 
     def layer(x, positions, lp, cache=None, valid_len=None):
         if decode:
@@ -282,8 +291,13 @@ def _make_layer_fn(cfg: LMConfig, par: Parallelism, decode: bool,
                                             differentiable=differentiable)
         x = x + attn_out
         hn = rms_norm(x, lp["mlp_norm"])
-        hmid = F.silu(hn @ lp["w_gate"]) * (hn @ lp["w_in"])
-        return x + hmid @ lp["w_out"], kv
+        if moe_layer is not None:
+            ffn_out, aux = moe_layer(hn, lp["router"], lp["we_gate"],
+                                     lp["we_in"], lp["we_out"])
+        else:
+            hmid = F.silu(hn @ lp["w_gate"]) * (hn @ lp["w_in"])
+            ffn_out, aux = hmid @ lp["w_out"], None
+        return x + ffn_out, kv, aux
 
     return layer
 
@@ -315,37 +329,42 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 
 
 def _run_layers(params, x, positions, layer, cfg: LMConfig, kv_out=None):
-    """x through every layer in order; with ``kv_out`` (a pair of [L, B, S,
-    KV, dh] tensors) each layer's (k, v) written into it. Under autograd
+    """(x through every layer in order, the layers' aux losses summed in
+    float32 from zero, in layer order); with ``kv_out`` (a pair of [L, B,
+    S, KV, dh] tensors) each layer's (k, v) written into it. Under autograd
     with ``cfg.remat`` each layer is checkpointed (``jax.checkpoint``)."""
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
         if remat:
-            x, kv = checkpoint(layer, x, positions, lp, use_reentrant=False)
+            x, kv, aux_l = checkpoint(layer, x, positions, lp,
+                                      use_reentrant=False)
         else:
-            x, kv = layer(x, positions, lp)
+            x, kv, aux_l = layer(x, positions, lp)
+        if aux_l is not None:
+            aux = aux + aux_l
         if kv_out is not None:
             kv_out[0][i] = kv[0]
             kv_out[1][i] = kv[1]
-    return x
+    return x, aux
 
 
 def forward(params, tokens, cfg: LMConfig, par: Parallelism):
-    """tokens: int[B, S] -> (final hidden [B, S, D], aux loss: a float32
-    zero for a dense config)."""
+    """tokens: int[B, S] -> (final hidden [B, S, D], the layers' summed
+    float32 aux loss: zero for a dense config)."""
     x = _embed(params, tokens)
     positions = _positions(*x.shape[:2], 0, x.device)
-    x = _run_layers(params, x, positions,
-                    _make_layer_fn(cfg, par, decode=False), cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_layers(params, x, positions,
+                         _make_layer_fn(cfg, par, decode=False), cfg)
     return rms_norm(x, params["final_norm"]), aux
 
 
 def forward_with_kv(params, tokens, cfg: LMConfig, par: Parallelism):
     """Prefill forward: final hidden [B, S, D] and the per-layer KV stacks
     ([L, B, S, KV, dh] x2, in the parameters' dtype). Inference only: the
-    block triangle of the attention takes its non-differentiable branch."""
+    block triangle of the attention takes its non-differentiable branch.
+    The aux loss is dropped, as in the reference."""
     x = _embed(params, tokens)
     b, s = x.shape[:2]
     positions = _positions(b, s, 0, x.device)
@@ -354,7 +373,7 @@ def forward_with_kv(params, tokens, cfg: LMConfig, par: Parallelism):
           torch.empty(shape, dtype=x.dtype, device=x.device))
     layer = _make_layer_fn(cfg, par, decode=False, return_kv=True,
                            differentiable=False)
-    x = _run_layers(params, x, positions, layer, cfg, kv_out=kv)
+    x, _ = _run_layers(params, x, positions, layer, cfg, kv_out=kv)
     return rms_norm(x, params["final_norm"]), kv
 
 
@@ -405,7 +424,8 @@ def decode_step(params, cache, tokens, valid_len, cfg: LMConfig,
     S_new`` placed as ``lax.dynamic_update_slice`` places it (a negative
     start wraps by Smax, then clamps into ``[0, Smax - S_new]``), and the
     same tensors are returned. A functional copy would double a cache of
-    tens of GB.
+    tens of GB. A mixture of experts' aux loss is dropped, as in the
+    reference.
     """
     valid_len = int(valid_len)
     x = _embed(params, tokens)
@@ -414,7 +434,7 @@ def decode_step(params, cache, tokens, valid_len, cfg: LMConfig,
     layer = _make_layer_fn(cfg, par, decode=True)
     ck, cv = cache
     for i in range(cfg.n_layers):
-        x, _ = layer(x, positions, _layer_params(params, i),
-                     cache=(ck[i], cv[i]), valid_len=valid_len)
+        x, _, _ = layer(x, positions, _layer_params(params, i),
+                        cache=(ck[i], cv[i]), valid_len=valid_len)
     x = rms_norm(x, params["final_norm"])
     return last_logits(params, x), (ck, cv)

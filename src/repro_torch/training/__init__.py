@@ -1,10 +1,11 @@
 """Step builders of the port: SASRec's train step and serving steps, the
-language model's prefill and decode steps."""
+language model's train, prefill and decode steps."""
 from repro_torch.training.steps import (
     make_lm_decode_step,
     make_lm_prefill_step,
+    make_lm_train_step,
     make_recsys_steps,
 )
 
-__all__ = ["make_lm_prefill_step", "make_lm_decode_step",
-           "make_recsys_steps"]
+__all__ = ["make_lm_train_step", "make_lm_prefill_step",
+           "make_lm_decode_step", "make_recsys_steps"]

@@ -1,12 +1,12 @@
 """Step builders, ported from ``src/repro/training/steps.py``: a model
 loss and AdamW as one train step, and the recsys serving steps.
 
-Every builder returns pure functions of (params, opt_state, batch), so a
-checkpoint of ``{"params", "opt"}`` is the whole training state. The
-gradient comes from ``torch.autograd.grad`` over the param leaves; the
-step runs on the device its params lie on. SASRec's steps and the
-language model's serving steps (prefill, decode) are here; the language
-model's train step and the GNN steps wait for their slices.
+Every builder returns functions of (params, opt_state, batch), pure
+unless built with ``donate``, so a checkpoint of ``{"params", "opt"}`` is
+the whole training state. The gradient comes from ``torch.autograd.grad``
+over the param leaves; the step runs on the device its params lie on. SASRec's steps and the
+language model's train, prefill and decode steps are here; the GNN steps
+wait for their slice.
 """
 from __future__ import annotations
 
@@ -20,11 +20,12 @@ from repro_torch.optim.tree import tree_leaves, tree_unflatten
 
 
 def _train_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int,
-                warmup: int):
+                warmup: int, donate: bool = False):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
     with ``metrics`` = ``loss``, ``grad_norm`` and ``lr``. The schedule
     reads the step count before the update's increment, so step 0 has an
-    lr of 0."""
+    lr of 0. With ``donate`` the step consumes the params and the state
+    (``adamw_update``'s ``donate``)."""
 
     def step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_(True)
@@ -38,7 +39,7 @@ def _train_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int,
         with torch.no_grad():
             params, opt_state, metrics = adamw_update(
                 tree_unflatten(params, grads), opt_state, params, opt_cfg,
-                lr_scale)
+                lr_scale, donate=donate)
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 
@@ -46,6 +47,24 @@ def _train_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int,
 
 
 # ------------------------------------------------------------------------- LM
+def make_lm_train_step(cfg: tfm.LMConfig, par: tfm.Parallelism,
+                       opt_cfg: AdamWConfig = AdamWConfig(),
+                       total_steps: int = 10_000, warmup: int = 200, *,
+                       donate: bool = False):
+    """``step(params, opt_state, batch)`` -> (params, opt_state, metrics):
+    ``lm_loss`` (cross entropy plus a mixture of experts' aux loss) and
+    its gradient through every layer (each checkpointed under
+    ``cfg.remat``), then AdamW under the cosine schedule. ``batch`` is
+    ``{"tokens": int[B, S + 1]}``; ``adamw_init(params)`` gives the first
+    state. With ``donate`` the step writes the new params and state into
+    the given tensors (one copy of the state on the card, not two)."""
+
+    def loss_fn(params, batch):
+        return tfm.lm_loss(params, batch, cfg, par)
+
+    return _train_step(loss_fn, opt_cfg, total_steps, warmup, donate)
+
+
 def make_lm_prefill_step(cfg: tfm.LMConfig, par: tfm.Parallelism,
                          s_max: int):
     """``prefill(params, tokens)`` -> (float32 logits [B, V] of the last

@@ -3,9 +3,10 @@ connectivity kernels bit for bit, since their outputs are integers;
 embedding_bag within 1e-5 in float32; flash_attention within 2e-5 in
 float32 and 3e-2 in bf16, the plain version's products in full float32,
 TF32 off, and both its kernels under the gate of ``ops.ATTN_GATES`` too),
-and the port's pipelines and models, the language model's serving path
-among them, on the card against the same on the CPU. These tests need an NVIDIA card; the ``cuda`` fixture skips
-them where there is none. On the card:
+and the port's pipelines and models, the language model's serving and
+training paths and the mixture-of-experts layer among them, on the card
+against the same on the CPU. These tests need an NVIDIA card; the
+``cuda`` fixture skips them where there is none. On the card:
 
     python -m pytest -m gpu tests/test_torch_cuda.py
 
@@ -1570,3 +1571,143 @@ def test_lm_decode_cache_in_place_on_card(cuda):
         rows = a.abs().amax(dim=(0, 1, 3, 4)).cpu()
         assert rows[3:5].min() > 0
         assert not rows[:3].any() and not rows[5:].any()
+
+
+# ------------------------------- language-model training, mixture of experts
+LM_TRAIN_ARCHS = ["qwen3_0_6b", "qwen3_14b", "stablelm_12b", "dbrx_132b",
+                  "qwen3_moe_235b_a22b"]
+
+
+def _lm_state(params, seed: int) -> dict:
+    """An AdamW state of ``params`` on the CPU past the warmup (step 5),
+    m normal at 1e-3, v its square plus 1e-6: a step then moves every
+    element by a smooth, full-lr update (``test_torch_lm_train.py``)."""
+    from repro_torch.optim.tree import tree_map
+
+    gen = torch.Generator().manual_seed(seed)
+    m = tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-3,
+                 params)
+    return {"step": torch.tensor(5, dtype=torch.int32),
+            "master": tree_map(lambda p: p.float().clone(), params),
+            "m": m, "v": tree_map(lambda a: a * a + 1e-6, m)}
+
+
+@pytest.mark.parametrize("arch", LM_TRAIN_ARCHS)
+def test_lm_train_step_on_card_equals_cpu(cuda, arch):
+    """One ``make_lm_train_step`` step at the float32 smoke config (step 5
+    of 20, warmup 2) on the card and on the CPU from the same weights and
+    state: loss, grad_norm, lr within 1e-5 relative; every param, master,
+    m and v leaf within 1e-5 of its largest magnitude; the donated step
+    (new values written into the given tensors) gives the pure step's
+    bits on the card; no kernel launched."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.training import make_lm_train_step
+
+    cfg = get(arch).smoke_config
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt_cpu = _lm_state(cpu, 1)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    opt_card = tree_map(lambda t: t.to(cuda), opt_cpu)
+    kept = tree_map(lambda t: t.clone(), (card, opt_card))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 17),
+                                     generator=torch.Generator().manual_seed(2),
+                                     dtype=torch.int32)}
+    par = tfm.Parallelism.none()
+    step = make_lm_train_step(cfg, par, warmup=2, total_steps=20)
+    reset_launch_counts()
+    card1, opt1, got = step(card, opt_card, batch)
+    assert not any(launch_counts().values())
+    cpu1, opt_cpu1, want = step(cpu, opt_cpu, batch)
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(got[key].item(), want[key].item(),
+                                   rtol=1e-5, err_msg=key)
+    for got_tree, want_tree in ((card1, cpu1), (opt1["master"],
+                                                opt_cpu1["master"]),
+                                (opt1["m"], opt_cpu1["m"]),
+                                (opt1["v"], opt_cpu1["v"])):
+        for a, b in zip(tree_leaves(got_tree), tree_leaves(want_tree)):
+            assert a.device.type == "cuda"
+            assert float((a.cpu() - b).abs().max()) <= \
+                1e-5 * float(b.abs().max())
+    donated = make_lm_train_step(cfg, par, warmup=2, total_steps=20,
+                                 donate=True)
+    p, o = kept
+    ptrs = [t.data_ptr() for t in tree_leaves((p, o["m"]))]
+    p2, o2, _ = donated(p, o, batch)
+    assert [t.data_ptr() for t in tree_leaves((p2, o2["m"]))] == ptrs
+    for a, b in zip(tree_leaves((p2, o2)), tree_leaves((card1, opt1))):
+        assert torch.equal(a, b)
+
+
+def _moe_grid(seed, t, d, e, f, dtype):
+    gen = torch.Generator().manual_seed(seed)
+
+    def grid(*shape):
+        return (torch.randn(shape, generator=gen) * 4).round().clamp(
+            -16, 16) / 16
+
+    return [grid(t, d).to(dtype), grid(d, e).to(dtype),
+            (torch.randn(e, d, f, generator=gen) / d ** 0.5).to(dtype),
+            (torch.randn(e, d, f, generator=gen) / d ** 0.5).to(dtype),
+            (torch.randn(e, f, d, generator=gen) / f ** 0.5).to(dtype)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("kw", [{"n_experts": 8, "top_k": 2},
+                                {"n_experts": 16, "top_k": 4,
+                                 "capacity_factor": 0.5}])
+def test_moe_ffn_local_on_card_equals_cpu(cuda, kw, dtype, tol):
+    """``moe_ffn_local`` on the card against the CPU, x and the router on a
+    grid of 2^-4 (exact float32 logits): the routing (ids, ranks, kept
+    mask, C) equal, the output within ``tol`` of its largest magnitude,
+    aux within 1e-6 relative; with drops at capacity factor 0.5."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(d_ff_expert=48, **kw)
+    cpu = _moe_grid(3, 64, 32, cfg.n_experts, 48, dtype)
+    card = [t.to(cuda) for t in cpu]
+    e = cfg.n_experts
+    r_card = moe.route(card[0], card[1], cfg, 0, e)
+    r_cpu = moe.route(cpu[0], cpu[1], cfg, 0, e)
+    assert r_card["cap"] == r_cpu["cap"]
+    for key in ("ids", "rank", "kept"):
+        assert torch.equal(r_card[key].cpu(), r_cpu[key]), key
+    got, aux = moe.moe_ffn_local(*card, cfg=cfg, e_start=0, n_local=e)
+    want, aux_cpu = moe.moe_ffn_local(*cpu, cfg=cfg, e_start=0, n_local=e)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    _lm_close(got, want, tol)
+    np.testing.assert_allclose(aux.item(), aux_cpu.item(), rtol=1e-6)
+
+
+def test_lm_train_main_on_card(cuda, tmp_path, capsys):
+    """``launch/train.py::main`` at ``--smoke`` on the card: the crash
+    drill (30 steps straight; killed at 17 with exit 17, then restarted
+    from step 10) lands on the same printed ``final_loss``; no kernel
+    launched."""
+    import re
+
+    from repro_torch.launch import train
+
+    def argv(name):
+        return ["--smoke", "--steps", "30", "--batch", "2", "--seq", "32",
+                "--ckpt-every", "10", "--ckpt-dir", str(tmp_path / name)]
+
+    reset_launch_counts()
+    train.main(argv("a"), device=cuda)
+    straight = capsys.readouterr().out
+    with pytest.raises(SystemExit) as exc:
+        train.main(argv("b") + ["--fail-at", "17"], device=cuda)
+    assert exc.value.code == 17
+    capsys.readouterr()
+    train.main(argv("b"), device=cuda)
+    resumed = capsys.readouterr().out
+    assert not any(launch_counts().values())
+    assert "[resume] restored step 10" in resumed
+
+    def final(out):
+        return re.search(r"^final_loss (\S+)$", out, re.M).group(1)
+
+    assert final(resumed) == final(straight)

@@ -35,6 +35,7 @@ from repro.models.moe import MoEConfig
 from repro.training import make_lm_prefill_step as j_prefill_step
 from repro_torch.configs import LM_FULL_ATTENTION_SKIPS, LM_SHAPES, get
 from repro_torch.interop import lm_params_from_numpy, to_numpy
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 from repro_torch.training import make_lm_prefill_step
 
@@ -75,9 +76,10 @@ def _weights(jcfg, tcfg, seed=0):
             a = 1 + 0.1 * rng.standard_normal(leaf.shape)
         elif "embed" in name:
             a = rng.standard_normal(leaf.shape)
-        else:  # fan-in: axis 1 after the stacked layer axis (wo: h x dh)
+        else:  # fan-in: axis 1 after the stacked layer axis (wo: h x dh;
+            # an expert's weight [L, E, in, out]: its input axis)
             fan = int(np.prod(leaf.shape[1:-1])) if "wo" in name \
-                else leaf.shape[1]
+                else leaf.shape[-2] if "we_" in name else leaf.shape[1]
             a = rng.standard_normal(leaf.shape) / np.sqrt(fan)
         return a.astype(np.float32)
 
@@ -149,26 +151,37 @@ def test_head_padding_widths():
 
 
 @pytest.mark.parametrize("moe_arch", ["dbrx_132b", "qwen3_moe_235b_a22b"])
-def test_moe_counts_and_refusal(moe_arch):
+def test_moe_counts_and_shapes(moe_arch):
     """The MoE configs' parameter counts through the port's ``LMConfig``;
-    the MoE layers themselves raise, naming where they wait."""
+    the port's ``param_shapes`` and ``init_params`` (a one-layer model of
+    the smoke config with the full config's expert count and top-k) give
+    the reference's ``init_params`` tree: keys, shapes and dtypes."""
     jc = j_get(moe_arch).config
     tc = tt.LMConfig(**{f.name: getattr(jc, f.name)
                         for f in dataclasses.fields(jc)})
     assert tc.n_params() == jc.n_params()
     assert tc.n_active_params() == jc.n_active_params()
-    small = tt.LMConfig(name="m", n_layers=1, d_model=8, n_heads=2,
-                        n_kv_heads=1, d_ff=8, vocab=16, d_head=4,
-                        moe=MoEConfig(n_experts=2, top_k=1, d_ff_expert=8),
-                        param_dtype="float32")
-    with pytest.raises(NotImplementedError, match="11.3"):
-        tt.init_params(small, torch.Generator().manual_seed(0), device="cpu")
-    _, dense = _cfgs("qwen3_0_6b")
-    params = tt.init_params(dense, torch.Generator().manual_seed(0),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="11.3"):
-        tt.forward(params, np.zeros((1, 4), np.int32),
-                   dataclasses.replace(dense, moe=small.moe), PAR)
+    jsmall = dataclasses.replace(
+        j_get(moe_arch).smoke_config, n_layers=1,
+        moe=MoEConfig(n_experts=jc.moe.n_experts, top_k=jc.moe.top_k,
+                      d_ff_expert=8))
+    small = dataclasses.replace(get(moe_arch).smoke_config, n_layers=1,
+                                moe=tmoe.MoEConfig(**dataclasses.asdict(
+                                    jsmall.moe)))
+    want = {jax.tree_util.keystr(p): v for p, v in
+            jax.tree_util.tree_leaves_with_path(_jax_shapes(jsmall))}
+    shapes = tt.param_shapes(small)
+    got = tt.init_params(small, torch.Generator().manual_seed(0),
+                         device="cpu")
+    for tree, shape_of in ((shapes, tuple), (got, lambda t: tuple(t.shape))):
+        flat = {jax.tree_util.keystr(p): shape_of(v) for p, v in
+                jax.tree_util.tree_leaves_with_path(
+                    tree, is_leaf=lambda x: isinstance(x, tuple))}
+        assert flat == {k: v.shape for k, v in want.items()}
+    assert "['layers']['we_out']" in want and "['layers']['w_in']" not in want
+    for path, leaf in jax.tree_util.tree_leaves_with_path(got):
+        assert leaf.dtype == getattr(
+            torch, str(want[jax.tree_util.keystr(path)].dtype))
 
 
 # ------------------------------------------------------------------- params

@@ -41,7 +41,9 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.optim.tree", "repro_torch.training.steps",
           "repro_torch.training", "repro_torch.launch.serve",
           "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.qwen3_14b",
-          "repro_torch.configs.stablelm_12b")
+          "repro_torch.configs.stablelm_12b", "repro_torch.models.moe",
+          "repro_torch.launch.train", "repro_torch.configs.dbrx_132b",
+          "repro_torch.configs.qwen3_moe_235b_a22b")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -69,4 +71,4 @@ def test_port_imports_neither_jax_nor_repro():
     assert "BAD []" in proc.stdout, proc.stdout
     assert "NAMED True" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 67  # every module of the package was imported
+    assert loaded >= 70  # every module of the package was imported
