@@ -303,6 +303,31 @@ Phases, one JSON line each:
              width with 1 layer (B 2 x S 4,096), cold and warm, with its
              capacity drops. ``lm_train_phases``: their seconds. Every
              line holds the five kernels' launch counts at 0.
+12. graph networks and pipeline parallelism — ``gnn_check``: one
+             ``make_gnn_train_step`` step of each GNN smoke config (egnn
+             also ``batched``, GraphSAGE also ``sampled``) on the card and
+             on the CPU from one set of weights and an AdamW state past the
+             warmup, every leaf within ``GNN_CHECK_TOL``. ``gnn_sampled``:
+             GraphSAGE at minibatch_lg on a synthetic multigraph of its
+             232,965 nodes and 114,615,892 edges, ``NeighborSampler``'s CSR
+             build, then a host batch and a card step, cold and five times
+             warm (seconds, seeds/s, peak bytes); ``gnn_sampled_idle``:
+             the batch's copy to the card timed by events and a step on
+             the copied batch under torch.profiler, the card's idle share
+             over one iteration. ``gnn_full``: GraphSAGE at ogb_products
+             (2,449,029 nodes, 61,859,140 edges), PNA and GatedGCN at
+             full_graph_sm, EGNN at molecule (128 graphs), cold and three
+             warm steps (seconds, edges/s, peak bytes); the cold step of
+             the last three held against the CPU, GraphSAGE's config on a
+             cut of 600,008 edges over five ``EDGE_CHUNK``s
+             (``GNN_CHECK_TOL``). ``pp``:
+             Qwen3-0.6B through ``make_pp_loss_fn`` with one stage on a
+             one-rank NCCL ``("pipe", "data")`` mesh, 4 x 2 x 4,096
+             tokens: the loss against the mean ``lm_loss``, every gradient
+             leaf against ``lm_loss``'s over the same tokens as one batch
+             (``PP_CHECK_TOL``), then cold and warm ``make_pp_train_step``
+             steps (tokens/s, peak bytes). ``gnn_pp_phases``: their
+             seconds. Every line holds the five kernels' launch counts at 0.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -331,8 +356,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-#: the serving report's clock-free view (``torch_serve_report.py``, shared
-#: with the CPU parity tests; it imports neither torch nor JAX)
+#: the serving report's clock-free view (``torch_serve_report.py``) and the
+#: GNN card-against-CPU cases (``torch_gnn_cases.py``), shared with the
+#: tests; they import neither torch nor JAX
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 
 from repro_torch import analyze, find_bridges
@@ -406,11 +432,12 @@ from repro_torch.kernels.boruvka_round.ref import (
     boruvka_round_ref,
     frontier_round_ref,
 )
-from repro_torch.configs import LM_SHAPES, RECSYS_SHAPES
+from repro_torch.configs import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 from repro_torch.configs import get as lm_get
 from repro_torch.configs.bridges_dense import CONFIG as BRIDGES_DENSE
 from repro_torch.configs.sasrec import CONFIG as SASREC
 from repro_torch.data.pipeline import SyntheticTokens, recsys_batches
+from repro_torch.data.sampler import NeighborSampler
 from repro_torch.kernels.embedding_bag import (
     embedding_bag,
     embedding_bag_bytes,
@@ -445,7 +472,15 @@ from repro_torch.kernels.segment_min.ref import segment_min_ref
 from repro_torch.launch import serve_bridges
 from repro_torch.launch.failover import serve_failover
 from repro_torch.checkpoint import reshard_checkpoint
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.gnn import GNNConfig
+from repro_torch.models.pipeline import (
+    PipelineConfig,
+    make_pp_loss_fn,
+    make_pp_train_step,
+    stageify_params,
+)
 from repro_torch.models.recsys import init_sasrec, param_specs, sasrec_hidden
 from repro_torch.models.transformer import Parallelism
 from repro_torch.models.transformer import init_cache as lm_init_cache
@@ -471,11 +506,13 @@ from repro_torch.obs import (
 )
 from repro_torch.runtime import FailureInjector
 from repro_torch.training.steps import (
+    make_gnn_train_step,
     make_lm_decode_step,
     make_lm_prefill_step,
     make_lm_train_step,
     make_recsys_steps,
 )
+from torch_gnn_cases import GNN_CHECK_CASES, GNN_CHECK_TOL, gnn_batch
 from torch_serve_report import clock_free
 
 #: the paper's Fig. 2 operating point (configs/bridges_dense.py::CONFIG)
@@ -4383,6 +4420,457 @@ def phase_lm_train_moe(smi: str) -> None:
           "launches": no_launches("lm_train_phases")})
 
 
+# ------------------------------------ graph networks, pipeline parallelism
+#: gnn_check: one make_gnn_train_step step of each of GNN_CHECK_CASES
+#: (tests/torch_gnn_cases.py, shared with the card tests) at its smoke
+#: config on the card and on a CPU copy, from one set of weights and an
+#: AdamW state past the warmup (moments_state), within GNN_CHECK_TOL (the
+#: reasons stand beside the numbers there)
+#: make_gnn_train_step's default warmup: the checked step runs at full lr
+GNN_WARMUP = 20
+#: gnn_sampled: GraphSAGE at minibatch_lg (src/repro/launch/workloads.py's
+#: sampled branch: d_feat 602, 41 classes, fan-out (15, 10), 1,024 seeds)
+#: on a synthetic multigraph of the shape's 232,965 nodes and 114,615,892
+#: edges (random_graph(..., simple=False)); GNN_SAMPLED_STEPS batches and
+#: steps after a cold one
+GNN_SAMPLED_SHAPE = "minibatch_lg"
+GNN_SAMPLED_EDGES = GNN_SHAPES[GNN_SAMPLED_SHAPE]["n_edges"]
+GNN_SAMPLED_STEPS = 5
+#: gnn_full: (arch, shape) at the configs' widths, built as workloads.py's
+#: full and batched branches build them; a cold step and GNN_FULL_WARM
+#: warm ones each
+GNN_FULL_RUNS = (("graphsage_reddit", "ogb_products"),
+                 ("pna", "full_graph_sm"), ("gatedgcn", "full_graph_sm"),
+                 ("egnn", "molecule"))
+GNN_FULL_WARM = 3
+#: gnn_full's cold step of pna, gatedgcn and egnn is held against the same
+#: step on a CPU copy (GNN_CHECK_TOL); GraphSAGE at ogb_products is too
+#: large for the CPU, so its config (width 128) is held on a cut of
+#: GNN_SAGE_CHECK = (nodes, edges, 8 masked slots after them,
+#: gnn.EDGE_CHUNK for the check): the edges span five chunks, the last
+#: part-full, in both passes of _WeightedGatherSum
+GNN_SAGE_CHECK = (50_000, 600_000, 1 << 17)
+#: pp: Qwen3-0.6B (bf16, full width) through make_pp_loss_fn with one
+#: stage on a one-rank NCCL ("pipe", "data") mesh: n_micro x mb x S tokens,
+#: the tokens of lm_train's step (8 x 4,096). Tolerances: the loss within
+#: 1e-6 relative of the mean lm_loss over the same microbatches (the same
+#: shapes, the same sums); each gradient leaf within 5e-2 of its largest
+#: magnitude of make_lm_train_step's gradient (lm_loss over the 32,768
+#: tokens as one batch of 8): bf16 products of 8 rows against 2 take other
+#: kernels, each rounding to 2^-8, and the bf16 gradients add 16 layers'
+#: worth of such roundings
+PP_MICRO, PP_MB, PP_WARM_STEPS = 4, 2, 3
+PP_S = LM_SHAPES["train_4k"]["seq_len"]
+PP_CHECK_TOL = {"loss_rtol": 1e-6, "leaf": 5e-2}
+
+
+def gnn_step_against_cpu(label: str, step, params, opt, batch,
+                         tol: float) -> tuple:
+    """One ``step`` on the card and the same step on a CPU copy of
+    ``params``, ``opt`` and ``batch``: loss, grad_norm and lr within
+    ``tol`` relative, every param, master, m and v leaf within ``tol`` of
+    the CPU leaf's largest magnitude, every leaf still on the card.
+    Returns (params, opt and metrics from the card, the check's record,
+    the card step's seconds)."""
+    cpu, opt_cpu, batch_cpu = tree_map(
+        lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+        (params, opt, batch))
+    sync()
+    t0 = time.perf_counter()
+    params, opt, got = step(params, opt, batch)
+    sync()
+    seconds = time.perf_counter() - t0
+    cpu, opt_cpu, want = step(cpu, opt_cpu, batch_cpu)
+    scalars = {k: {"card": got[k].item(), "cpu": want[k].item()}
+               for k in ("loss", "grad_norm", "lr")}
+    for key, pair in scalars.items():
+        if not (math.isfinite(pair["cpu"]) and abs(pair["card"]
+                - pair["cpu"]) <= tol * abs(pair["cpu"])):
+            raise AssertionError(f"{label}: {key} {pair}")
+    worst = 0.0
+    for a_tree, b_tree in ((params, cpu), (opt, opt_cpu)):
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            if a.device.type != torch.device(DEVICE).type:
+                raise AssertionError(f"{label}: a leaf left the card")
+            if a.dtype.is_floating_point:
+                worst = max(worst, rel_err(a, b))
+    if not worst <= tol:
+        raise AssertionError(f"{label}: a leaf differs by {worst} of its "
+                             f"scale")
+    return params, opt, got, {"scalars": scalars,
+                              "max_err_over_leaf_scale": worst,
+                              "tolerance": tol}, seconds
+
+
+def phase_gnn_check(smi: str) -> None:
+    """``GNN_CHECK_CASES`` on the card against the CPU (``GNN_CHECK_TOL``):
+    loss, grad_norm, lr and every param, master, m and v leaf."""
+    cases = []
+    for arch, mode in GNN_CHECK_CASES:
+        cfg = lm_get(arch).smoke_config
+        card = gnn_mod.init_gnn(cfg, torch.Generator(device=DEVICE)
+                                .manual_seed(SEED), device=DEVICE)
+        opt = moments_state(card, SEED + 5, GNN_WARMUP)
+        reset_launch_counts()
+        *_, check, seconds = gnn_step_against_cpu(
+            f"gnn_check {arch}/{mode}", make_gnn_train_step(cfg, None, mode),
+            card, opt, gnn_batch(cfg, mode, SEED), GNN_CHECK_TOL[cfg.arch])
+        cases.append({"arch": arch, "mode": mode, **check,
+                      "card_s": seconds,
+                      "launches": no_launches(f"gnn_check {arch}")})
+    emit({"phase": "gnn_check", "cases": cases, "state_step": GNN_WARMUP,
+          "nvidia_smi": smi})
+
+
+def gnn_shape_config(arch: str, shape: dict):
+    """``arch``'s config at ``shape``, as workloads.py builds it: the
+    config's depth and width, the shape's features and classes (1 for a
+    batched shape), its fan-out for a sampled one."""
+    base = lm_get(arch).config
+    extra = ({"sample_sizes": tuple(shape["fanout"])}
+             if shape["kind"] == "sampled" else {})
+    return GNNConfig(name=base.name, arch=base.arch, n_layers=base.n_layers,
+                     d_hidden=base.d_hidden, d_feat=shape["d_feat"],
+                     n_classes=(1 if shape["kind"] == "batched"
+                                else shape["n_classes"]),
+                     pna_delta=base.pna_delta, **extra)
+
+
+def phase_gnn_sampled(smi: str) -> None:
+    """GraphSAGE at minibatch_lg: the synthetic graph, its CSR (the
+    sampler's constructor), then ``NeighborSampler.batch_at`` on the host
+    and a ``make_gnn_train_step(mode="sampled")`` step on the card, once
+    cold and ``GNN_SAMPLED_STEPS`` times warm (host seconds per batch,
+    card seconds per step, seeds/s end to end, peak bytes); the batch's
+    copy to the card timed by events and one warm step on the copied batch
+    under torch.profiler, for the card's idle share over an iteration
+    (``gnn_sampled_idle``)."""
+    shape = GNN_SHAPES[GNN_SAMPLED_SHAPE]
+    cfg = gnn_shape_config("graphsage_reddit", shape)
+    n, seeds = shape["n_nodes"], shape["batch_nodes"]
+    t0 = time.perf_counter()
+    src, dst = gen.random_graph(n, GNN_SAMPLED_EDGES, seed=SEED,
+                                simple=False)
+    rng = np.random.default_rng(SEED)
+    feats = rng.standard_normal((n, cfg.d_feat), np.float32)
+    labels = rng.integers(0, cfg.n_classes, n)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(src, dst, n, feats, seed=SEED)
+    csr_s = time.perf_counter() - t0
+    del src, dst
+    params = gnn_mod.init_gnn(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(SEED), device=DEVICE)
+    opt = adamw_init(params)
+    step = make_gnn_train_step(cfg, None, "sampled")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    host_s, card_s, losses = [], [], []
+    for i in range(1 + GNN_SAMPLED_STEPS):
+        t0 = time.perf_counter()
+        batch = sampler.batch_at(i, seeds, cfg.sample_sizes, labels)
+        host_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(metrics["loss"].item())
+        card_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = no_launches("gnn_sampled")
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.n_classes)) < 0.5):
+        raise AssertionError(f"gnn_sampled: losses {losses}, ln C = "
+                             f"{math.log(cfg.n_classes)}")
+    warm_host, warm_card = host_s[1:], card_s[1:]
+    x_bytes = sum(batch[k].nbytes for k in ("x0", "x1", "x2"))
+    emit({"phase": "gnn_sampled", "arch": "graphsage_reddit",
+          "shape": GNN_SAMPLED_SHAPE, "n_nodes": n,
+          "n_edges": GNN_SAMPLED_EDGES, "seeds": seeds,
+          "fanout": list(cfg.sample_sizes), "d_feat": cfg.d_feat,
+          "reduced": ([] if GNN_SAMPLED_EDGES == shape["n_edges"] else
+                      [f"edges {shape['n_edges']} cut to "
+                       f"{GNN_SAMPLED_EDGES}: the host's CSR build"]),
+          "graph_host_s": graph_s, "csr_build_s": csr_s,
+          "batch_host_s": warm_host, "step_card_s": warm_card,
+          "cold_batch_host_s": host_s[0], "cold_step_s": card_s[0],
+          "batch_host_median_s": statistics.median(warm_host),
+          "step_median_s": statistics.median(warm_card),
+          "seeds_per_s": seeds * len(warm_host)
+          / (sum(warm_host) + sum(warm_card)),
+          "batch_feature_bytes": x_bytes, "losses": losses,
+          "peak_device_bytes": peak, "launches": launches,
+          "nvidia_smi": smi})
+    # a warm step's wall is mostly its pageable copy of the numpy batch to
+    # the card, which the profiler's device events do not show: time the
+    # copy on the card's clock (events around it: the staging and the DMA),
+    # then profile a step on the batch already on the card
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    end.record()
+    sync()
+    copy_wall = time.perf_counter() - t0
+    copy_s = start.elapsed_time(end) / 1e3
+    reset_launch_counts()
+    prof = phase_profile(
+        "gnn_sampled step, batch on the card",
+        lambda: step(params, opt, on_card),
+        lambda got: math.isfinite(got[2]["loss"].item()), cpu_ops=False,
+        extra=lambda: {"nvidia_smi": smi,
+                       "launches": no_launches("profiled gnn_sampled")})
+    iteration = statistics.median(warm_host) + statistics.median(warm_card)
+    busy = prof["device_busy_s"] or 0.0
+    emit({"phase": "gnn_sampled_idle",
+          "note": "one warm iteration: the host's sampled batch "
+                  "(batch_host_median_s) then the step on the numpy batch "
+                  "(step_median_s, its copy to the card included); the "
+                  "card's kernel time from the profiled step on the batch "
+                  "already on the card, the copy's from events",
+          "batch_bytes": sum(v.nbytes for v in batch.values()),
+          "copy_wall_s": copy_wall, "copy_card_s": copy_s,
+          "step_kernels_s": busy, "iteration_s": iteration,
+          "kernel_share": busy / iteration,
+          "copy_share": copy_s / iteration,
+          "idle_share": 1 - (busy + copy_s) / iteration,
+          "nvidia_smi": smi})
+
+
+def gnn_full_batch(cfg, shape: dict, seed: int) -> tuple:
+    """(a batch of ``shape`` for ``cfg`` with its tensors on the card,
+    the edges one step runs over): ``random_graph(..., simple=False)``
+    edges, seeded node features, labels and a label mask on the card."""
+    gen_card = torch.Generator(device=DEVICE).manual_seed(seed)
+    n, e = shape["n_nodes"], shape["n_edges"]
+    if shape["kind"] == "batched":
+        g = shape["batch"]
+        rng = np.random.default_rng(seed)
+        graphs = {"src": torch.from_numpy(rng.integers(0, n, (g, e)))
+                  .to(DEVICE, torch.int32),
+                  "dst": torch.from_numpy(rng.integers(0, n, (g, e)))
+                  .to(DEVICE, torch.int32),
+                  "mask": torch.ones((g, e), dtype=torch.bool, device=DEVICE),
+                  "h": torch.randn((g, n, cfg.d_feat), generator=gen_card,
+                                   device=DEVICE),
+                  "x": torch.randn((g, n, 3), generator=gen_card,
+                                   device=DEVICE)}
+        return {"graphs": graphs,
+                "targets": torch.randn(g, generator=gen_card,
+                                       device=DEVICE)}, g * e
+    src, dst = gen.random_graph(n, e, seed=seed, simple=False)
+    batch = {"src": torch.from_numpy(src).to(DEVICE),
+             "dst": torch.from_numpy(dst).to(DEVICE),
+             "mask": torch.ones(e, dtype=torch.bool, device=DEVICE),
+             "feats": torch.randn((n, cfg.d_feat), generator=gen_card,
+                                  device=DEVICE),
+             "labels": torch.randint(0, cfg.n_classes, (n,),
+                                     generator=gen_card, device=DEVICE,
+                                     dtype=torch.int32),
+             "label_mask": torch.rand(n, generator=gen_card,
+                                      device=DEVICE) < 0.5}
+    return batch, e
+
+
+def gnn_sage_chunk_check(cfg) -> dict:
+    """GraphSAGE's ``cfg`` (ogb_products' widths) on the card against the
+    CPU on the cut ``GNN_SAGE_CHECK``, with ``gnn.EDGE_CHUNK`` set there so
+    that the edges span several chunks: one full-graph step from an AdamW
+    state past the warmup, within ``GNN_CHECK_TOL``."""
+    n, e, chunk = GNN_SAGE_CHECK
+    batch, _ = gnn_full_batch(cfg, {"kind": "full", "n_nodes": n,
+                                    "n_edges": e}, SEED + 1)
+    pad = torch.arange(8, device=DEVICE)
+    batch["src"] = torch.cat([batch["src"], pad.neg() - 1]).int()
+    batch["dst"] = torch.cat([batch["dst"], pad + n]).int()
+    batch["mask"] = torch.cat([batch["mask"], torch.zeros_like(pad,
+                                                               dtype=bool)])
+    params = gnn_mod.init_gnn(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(SEED + 1), device=DEVICE)
+    opt = moments_state(params, SEED + 6, GNN_WARMUP)
+    saved, gnn_mod.EDGE_CHUNK = gnn_mod.EDGE_CHUNK, chunk
+    try:
+        *_, check, seconds = gnn_step_against_cpu(
+            "gnn_full graphsage chunked", make_gnn_train_step(cfg, None),
+            params, opt, batch, GNN_CHECK_TOL[cfg.arch])
+    finally:
+        gnn_mod.EDGE_CHUNK = saved
+    return {"n_nodes": n, "n_edges": e + 8, "edge_chunk": chunk,
+            "chunks": -(-(e + 8) // chunk), "state_step": GNN_WARMUP,
+            **check, "card_s": seconds}
+
+
+def phase_gnn_full(smi: str) -> None:
+    """``GNN_FULL_RUNS``: each config at its shape, a cold step and
+    ``GNN_FULL_WARM`` warm ones (seconds, edges/s over the edges a step
+    runs, peak bytes, the five kernels' launches: 0). The cold step of
+    the small shapes is held against the CPU (``gnn_step_against_cpu``);
+    GraphSAGE's config against the CPU on a cut of the graph
+    (``gnn_sage_chunk_check``)."""
+    for arch, shape_name in GNN_FULL_RUNS:
+        shape = GNN_SHAPES[shape_name]
+        cfg = gnn_shape_config(arch, shape)
+        mode = "batched" if shape["kind"] == "batched" else "full"
+        reset_launch_counts()
+        big = arch == "graphsage_reddit"
+        check = gnn_sage_chunk_check(cfg) if big else None
+        batch, edges = gnn_full_batch(cfg, shape, SEED)
+        params = gnn_mod.init_gnn(cfg, torch.Generator(device=DEVICE)
+                                  .manual_seed(SEED), device=DEVICE)
+        opt = (adamw_init(params) if big
+               else moments_state(params, SEED + 5, GNN_WARMUP))
+        step = make_gnn_train_step(cfg, None, mode)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, losses = [], []
+        for i in range(1 + GNN_FULL_WARM):
+            if i == 0 and not big:
+                params, opt, metrics, check, cold = gnn_step_against_cpu(
+                    f"gnn_full {arch}", step, params, opt, batch,
+                    GNN_CHECK_TOL[cfg.arch])
+                losses.append(metrics["loss"].item())
+                seconds.append(cold)
+                continue
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(metrics["loss"].item())
+            sync()
+            seconds.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"gnn_full {arch}: losses {losses}")
+        warm = statistics.median(seconds[1:])
+        rec = {"phase": "gnn_full", "arch": arch, "shape": shape_name,
+               "mode": mode, "n_nodes": shape["n_nodes"],
+               "edges_per_step": edges, "d_feat": cfg.d_feat,
+               "d_hidden": cfg.d_hidden, "n_layers": cfg.n_layers,
+               "cold_s": seconds[0], "warm_s": seconds[1:],
+               "warm_median_s": warm, "edges_per_s": edges / warm,
+               "losses": losses, "peak_device_bytes": peak,
+               "param_bytes": tree_bytes(params),
+               "check_against_cpu": check,
+               "launches": no_launches(f"gnn_full {arch}"),
+               "nvidia_smi": smi}
+        if big:
+            # a plain port's layer-2 aggregation: h[src] and h[src] * w,
+            # E x d_hidden float32 each, held at once (gnn.py's
+            # _WeightedGatherSum adds EDGE_CHUNK edges at a time instead)
+            rec["reckoned_unchunked_bytes"] = 2 * edges * cfg.d_hidden * 4
+            rec["edge_chunk"] = gnn_mod.EDGE_CHUNK
+        emit(rec)
+        del batch, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_pp(smi: str) -> None:
+    """Qwen3-0.6B (bf16) through the pipeline with one stage on a one-rank
+    NCCL ``("pipe", "data")`` mesh: the loss against the mean ``lm_loss``
+    over the same microbatches, every gradient leaf against
+    make_lm_train_step's gradient (``lm_loss`` over the same tokens as one
+    batch), within ``PP_CHECK_TOL``; then a cold ``make_pp_train_step``
+    step and ``PP_WARM_STEPS`` warm ones (seconds, tokens/s, peak
+    bytes)."""
+    cfg = lm_get(LM_CHECK_ARCH).config
+    tokens = SyntheticTokens(cfg.vocab, PP_MICRO * PP_MB, PP_S,
+                             seed=SEED).batch_at(0)["tokens"]
+    micro = {"tokens": tokens.reshape(PP_MICRO, PP_MB, -1)}
+    n_tokens = PP_MICRO * PP_MB * PP_S
+    with one_rank_nccl_mesh(("pipe", "data")) as mesh:
+        par = Parallelism(mesh=mesh, dp_axes=("data",), tp_axis="model")
+        pp = PipelineConfig(n_stages=1, n_micro=PP_MICRO)
+        params = lm_init(cfg, torch.Generator(device=DEVICE)
+                         .manual_seed(SEED), device=DEVICE)
+        staged = stageify_params(params, 1)  # a view: one stage is [1, L]
+        loss_fn = make_pp_loss_fn(cfg, par, pp)
+
+        def value_and_grad(fn, tree):
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(tree)]
+            with torch.enable_grad():
+                loss = fn(tree_unflatten(tree, leaves))
+                grads = torch.autograd.grad(loss, leaves)
+            return loss.detach(), grads
+
+        (pp_loss, pp_grads), rec = timed(lambda: value_and_grad(
+            lambda p: loss_fn(p, micro), staged))
+        with torch.no_grad():
+            mean_mb = sum(lm_loss(params, {"tokens": micro["tokens"][i]},
+                                  cfg, Parallelism.none())
+                          for i in range(PP_MICRO)) / PP_MICRO
+        lm_value, lm_grads = value_and_grad(
+            lambda p: lm_loss(p, {"tokens": tokens}, cfg,
+                              Parallelism.none()), params)
+        tol = PP_CHECK_TOL
+        got, want = pp_loss.item(), mean_mb.item()
+        if not abs(got - want) <= tol["loss_rtol"] * abs(want):
+            raise AssertionError(f"pp: loss {got}, mean lm_loss {want}")
+        worst = 0.0
+        for a, b in zip(pp_grads, lm_grads):
+            worst = max(worst, rel_err(a.reshape(b.shape), b))
+        if not worst <= tol["leaf"]:
+            raise AssertionError(f"pp: a gradient leaf differs by {worst} "
+                                 f"of its scale")
+        check = {"loss": got, "mean_lm_loss": want,
+                 "lm_loss_one_batch": lm_value.item(),
+                 "max_grad_err_over_leaf_scale": worst, "tolerance": tol,
+                 "value_and_grad_s": rec["seconds"],
+                 "launches": no_launches("pp check")}
+        del pp_grads, lm_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = adamw_init(staged)
+        step = make_pp_train_step(cfg, par, pp, AdamWConfig(lr=1e-3),
+                                  total_steps=1 + PP_WARM_STEPS, warmup=1)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        seconds, losses = [], []
+        for i in range(1 + PP_WARM_STEPS):
+            batch = SyntheticTokens(cfg.vocab, PP_MICRO * PP_MB, PP_S,
+                                    seed=SEED).batch_at(i)["tokens"]
+            t0 = time.perf_counter()
+            staged, opt, metrics = step(
+                staged, opt, {"tokens": batch.reshape(PP_MICRO, PP_MB, -1)})
+            losses.append(metrics["loss"].item())
+            sync()
+            seconds.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"pp: losses {losses}")
+        warm = statistics.median(seconds[1:])
+        emit({"phase": "pp", "arch": LM_CHECK_ARCH, "dtype": cfg.param_dtype,
+              "n_stages": 1, "n_micro": PP_MICRO, "mb": PP_MB, "S": PP_S,
+              "tokens_per_step": n_tokens, "check": check,
+              "cold_s": seconds[0], "warm_s": seconds[1:],
+              "warm_median_s": warm, "tokens_per_s": n_tokens / warm,
+              "losses": losses, "peak_device_bytes": peak,
+              "state_bytes": tree_bytes(opt),
+              "launches": no_launches("pp"), "nvidia_smi": smi,
+              "note": "one stage on one card: no stage boundary is crossed; "
+                      "the schedule over several stages runs only in the "
+                      "eight-rank gloo test (tests/test_torch_pipeline.py)"})
+        del params, staged, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_gnn_pp(smi: str) -> None:
+    """The graph-network and pipeline phases, TF32 off as the earlier
+    phases set it, then their seconds (``gnn_pp_phases``)."""
+    t0 = time.perf_counter()
+    seconds = {}
+    for name, fn in (("gnn_check", phase_gnn_check),
+                     ("gnn_sampled", phase_gnn_sampled),
+                     ("gnn_full", phase_gnn_full), ("pp", phase_pp)):
+        t1 = time.perf_counter()
+        fn(smi)
+        seconds[name] = time.perf_counter() - t1
+    emit({"phase": "gnn_pp_phases", "seconds": time.perf_counter() - t0,
+          "by_phase": seconds, "nvidia_smi": smi,
+          "launches": no_launches("gnn_pp_phases")})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4469,6 +4957,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm(smi)
     phase_lm_train_moe(smi)
+    phase_gnn_pp(smi)
 
     kernels = []
     for name, rec in checks.items():

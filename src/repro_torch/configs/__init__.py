@@ -1,19 +1,30 @@
 """Architecture configs of the port, copied from ``src/repro/configs``.
 
 Each ``ArchSpec`` carries the full-width config, a reduced smoke config
-(CPU-sized) and its shape set. ``get`` serves the ids whose modules have
-come across: the dense language models ``qwen3_0_6b``, ``qwen3_14b`` and
-``stablelm_12b``, the mixture-of-experts language models ``dbrx_132b`` and
-``qwen3_moe_235b_a22b``, ``sasrec`` and ``bridges_dense`` (the paper's own
-workload). The GNN configs and ``GNN_SHAPES`` wait for the GNN;
-``ARCH_IDS`` and ``all_specs`` come with them, so that ``all_specs``
-never raises.
+(CPU-sized) and its shape set. Every id of ``ARCH_IDS`` has its module:
+the dense language models, the mixture-of-experts language models, the
+four graph networks, ``sasrec`` and ``bridges_dense`` (the paper's own
+workload), so ``all_specs`` returns all eleven in the reference's order.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any
+
+ARCH_IDS = [
+    "qwen3_0_6b",
+    "stablelm_12b",
+    "qwen3_14b",
+    "dbrx_132b",
+    "qwen3_moe_235b_a22b",
+    "graphsage_reddit",
+    "pna",
+    "egnn",
+    "gatedgcn",
+    "sasrec",
+    "bridges_dense",  # the paper's own workload
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +44,10 @@ def get(arch_id: str) -> ArchSpec:
     return mod.SPEC
 
 
+def all_specs() -> list[ArchSpec]:
+    return [get(a) for a in ARCH_IDS]
+
+
 # ---------------------------------------------------------------- shape sets
 LM_SHAPES = {
     "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
@@ -43,6 +58,25 @@ LM_SHAPES = {
 LM_FULL_ATTENTION_SKIPS = {
     "long_500k": "pure full-attention arch: 524k decode needs sub-quadratic "
     "attention (assignment: skip for full-attention archs; DESIGN.md §4)",
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": {
+        "kind": "full", "n_nodes": 2708, "n_edges": 10556, "d_feat": 1433,
+        "n_classes": 7,
+    },
+    "minibatch_lg": {
+        "kind": "sampled", "n_nodes": 232965, "n_edges": 114615892,
+        "batch_nodes": 1024, "fanout": (15, 10), "d_feat": 602, "n_classes": 41,
+    },
+    "ogb_products": {
+        "kind": "full", "n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100,
+        "n_classes": 47,
+    },
+    "molecule": {
+        "kind": "batched", "n_nodes": 30, "n_edges": 64, "batch": 128,
+        "d_feat": 16, "n_classes": 1,
+    },
 }
 
 RECSYS_SHAPES = {

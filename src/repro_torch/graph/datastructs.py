@@ -349,14 +349,28 @@ def _pair_key_np(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
 
 def build_csr(src: np.ndarray, dst: np.ndarray, n_nodes: int):
     """Host-side CSR over the *symmetrized* edge list: (indptr, indices,
-    edge_id). Used by the host DFS."""
+    edge_id). Used by the host DFS and the neighbour sampler. The
+    reference's arrays, arc for arc, for any ids: its ``np.lexsort((adst,
+    asrc))`` is one stable sort of the int64 key ``asrc * 2^32 + (adst +
+    2^31)`` by torch on the host, the same permutation several times
+    faster (229 M arcs: a lexsort takes minutes), and its ``np.add.at(indptr,
+    asrc + 1, 1)`` one ``np.bincount``, wrapping a negative slot as
+    ``add.at`` does; an id ``add.at`` cannot place (outside ``[-(n + 2),
+    n)``) raises its ``IndexError``."""
+    if n_nodes > INF32 - 2:
+        raise ValueError(f"build_csr: n_nodes {n_nodes} exceeds 2^31 - 3")
     e = len(src)
     asrc = np.concatenate([src, dst])
     adst = np.concatenate([dst, src])
+    if e and (asrc.min() < -(n_nodes + 2) or asrc.max() >= n_nodes):
+        raise IndexError(f"build_csr: an id lies outside [{-(n_nodes + 2)},"
+                         f" {n_nodes})")
     eid = np.concatenate([np.arange(e), np.arange(e)])
-    order = np.lexsort((adst, asrc))
+    key = asrc.astype(np.int64) * (1 << 32) + (adst.astype(np.int64)
+                                               - INT32_MIN)
+    order = torch.sort(torch.from_numpy(key), stable=True).indices.numpy()
     asrc, adst, eid = asrc[order], adst[order], eid[order]
-    indptr = np.zeros(n_nodes + 1, np.int64)
-    np.add.at(indptr, asrc + 1, 1)
-    indptr = np.cumsum(indptr)
+    slot = asrc.astype(np.int64) + 1
+    indptr = np.cumsum(np.bincount(
+        np.where(slot < 0, slot + n_nodes + 1, slot), minlength=n_nodes + 1))
     return indptr, adst.astype(np.int32), eid.astype(np.int32)

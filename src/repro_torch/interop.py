@@ -17,6 +17,7 @@ from repro_torch.graph.datastructs import EdgeList, resolve_device
 from repro_torch.optim.tree import tree_map
 
 if TYPE_CHECKING:
+    from repro_torch.models.gnn import GNNConfig
     from repro_torch.models.recsys import SASRecConfig
     from repro_torch.models.transformer import LMConfig
 
@@ -102,6 +103,31 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> dict:
                                  shapes["final_norm"]),
             "layers": {name: tensor(name, tree["layers"][name], want)
                        for name, want in shapes["layers"].items()}}
+
+
+def gnn_params_from_numpy(tree: dict, cfg: GNNConfig, device=None) -> dict:
+    """The port's graph-network parameters, key for key, from the JAX
+    package's ``init_gnn`` tree given as numpy arrays (a dict of matrices
+    and vectors and ``layers``, a list of dicts), in ``cfg``'s dtype on
+    ``device`` (the card unless named). Raises where the tree's structure
+    or a shape is not that of ``init_gnn(cfg, ...)``."""
+    from repro_torch.models.gnn import init_gnn
+
+    dev = resolve_device(device)
+    want = init_gnn(cfg, torch.Generator(), device="meta")
+
+    def tensor(p, value):
+        a = np.asarray(value)
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"a leaf of shape {a.shape}, config gives "
+                             f"{tuple(p.shape)}")
+        return torch.tensor(a, dtype=cfg.dtype, device=dev)
+
+    if set(tree) != set(want) or len(tree["layers"]) != len(want["layers"]) \
+            or any(set(a) != set(b) for a, b in zip(tree["layers"],
+                                                   want["layers"])):
+        raise ValueError(f"the tree's keys differ from {cfg.arch}'s")
+    return tree_map(tensor, want, tree)
 
 
 def adamw_state_from_numpy(tree: dict, params, device=None) -> dict:

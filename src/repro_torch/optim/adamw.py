@@ -59,10 +59,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
-                 donate: bool = False):
+                 donate: bool = False, grad_norm=None):
     """Returns (new_params, new_state, metrics); ``grads`` may be bfloat16,
     the arithmetic is float32. ``metrics`` holds ``grad_norm`` (before the
-    clip) and ``lr`` (``cfg.lr * lr_scale``).
+    clip) and ``lr`` (``cfg.lr * lr_scale``). ``grad_norm``, when given,
+    is the norm the clip uses in place of ``global_norm(grads)``: the norm
+    of the whole gradient where ``grads`` is one rank's part of it (a
+    pipeline stage's layers).
 
     With ``donate`` the state's ``master``, ``m`` and ``v`` and the params
     (each contiguous) are consumed, as buffers donated to a jitted step
@@ -73,7 +76,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
     instead of two copies and a leaf's temporaries (a 3.1 G-parameter
     state is 37 GB, one expert leaf's temporaries about 25 GB)."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / gn.clamp_min(1e-9), max=1.0)
     # float32 powers, as the reference's b1 ** step.astype(float32)
     stepf = step.float()

@@ -4,15 +4,16 @@ loss and AdamW as one train step, and the recsys serving steps.
 Every builder returns functions of (params, opt_state, batch), pure
 unless built with ``donate``, so a checkpoint of ``{"params", "opt"}`` is
 the whole training state. The gradient comes from ``torch.autograd.grad``
-over the param leaves; the step runs on the device its params lie on. SASRec's steps and the
-language model's train, prefill and decode steps are here; the GNN steps
-wait for their slice.
+over the param leaves; the step runs on the device its params lie on.
+The language model's train, prefill and decode steps, the graph networks'
+train step in its three modes, and SASRec's steps are here.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
@@ -96,6 +97,51 @@ def make_lm_decode_step(cfg: tfm.LMConfig, par: tfm.Parallelism):
         return tfm.decode_step(params, cache, tokens, valid_len, cfg, par)
 
     return decode
+
+
+# ------------------------------------------------------------------------ GNN
+def make_gnn_train_step(cfg: gnn_mod.GNNConfig, par=None, mode: str = "full",
+                        opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3),
+                        total_steps: int = 1000, warmup: int = 20):
+    """``step(params, opt_state, batch)`` -> (params, opt_state, metrics)
+    over a graph network's loss, in the reference's three modes:
+
+    - ``full``: one graph (``feats``, ``src``, ``dst``, ``mask``,
+      ``labels``, ``label_mask``), node-classification cross entropy; for
+      egnn (``h``, ``x``, ``src``, ``dst``, ``mask``, ``target`` [1]) the
+      squared error of the graph-level prediction;
+    - ``sampled``: GraphSAGE on a ``NeighborSampler`` batch;
+    - ``batched``: ``{"graphs": G stacked graphs, "targets": [G]}``, egnn's
+      ``egnn_batch_loss``, or for the other archs the squared error of
+      each graph's mean-pooled logit 0.
+    """
+    if mode == "full":
+        if cfg.arch == "egnn":
+            def loss_fn(params, batch):
+                pred, _ = gnn_mod.egnn_forward(params, batch, cfg)
+                target = torch.as_tensor(batch["target"], device=pred.device)
+                return ((pred - target) ** 2).mean()
+        else:
+            def loss_fn(params, batch):
+                return gnn_mod.node_classification_loss(params, batch, cfg,
+                                                        par)
+    elif mode == "sampled":
+        def loss_fn(params, batch):
+            return gnn_mod.sage_minibatch_loss(params, batch, cfg, par)
+    elif mode == "batched":
+        if cfg.arch == "egnn":
+            def loss_fn(params, batch):
+                return gnn_mod.egnn_batch_loss(params, batch, cfg, par)
+        else:
+            def loss_fn(params, batch):
+                pooled = gnn_mod.batched_pooled_logits(
+                    params, batch["graphs"], cfg)  # [G, C]
+                targets = torch.as_tensor(batch["targets"],
+                                          device=pooled.device)
+                return ((pooled[:, 0] - targets) ** 2).mean()
+    else:
+        raise ValueError(mode)
+    return _train_step(loss_fn, opt_cfg, total_steps, warmup)
 
 
 # --------------------------------------------------------------------- recsys

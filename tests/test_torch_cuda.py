@@ -89,6 +89,7 @@ from repro_torch.optim import (
 from repro_torch.optim.compression import compressed_psum_tree
 from repro_torch.optim.tree import tree_leaves
 from repro_torch.training.steps import make_recsys_steps
+from torch_gnn_cases import GNN_CHECK_CASES, GNN_CHECK_TOL, gnn_batch
 
 pytestmark = pytest.mark.gpu
 
@@ -1711,3 +1712,123 @@ def test_lm_train_main_on_card(cuda, tmp_path, capsys):
         return re.search(r"^final_loss (\S+)$", out, re.M).group(1)
 
     assert final(resumed) == final(straight)
+
+
+# ----------------------------------- graph networks, pipeline parallelism
+@pytest.mark.parametrize("arch,mode", GNN_CHECK_CASES)
+def test_gnn_train_step_on_card_equals_cpu(cuda, arch, mode):
+    """One ``make_gnn_train_step`` step at the smoke config on the card and
+    on the CPU from the same weights and an AdamW state past the warmup:
+    loss, grad_norm, lr and every param, master, m and v leaf within
+    ``GNN_CHECK_TOL``; the leaves stay on the card; no kernel launched."""
+    from repro_torch.configs import get
+    from repro_torch.models import gnn
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.training import make_gnn_train_step
+
+    cfg = get(arch).smoke_config
+    tol = GNN_CHECK_TOL[cfg.arch]
+    cpu = gnn.init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt_cpu = _lm_state(cpu, 1)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    opt_card = tree_map(lambda t: t.to(cuda), opt_cpu)
+    batch = gnn_batch(cfg, mode, 0)
+    step = make_gnn_train_step(cfg, None, mode, warmup=2, total_steps=20)
+    reset_launch_counts()
+    card1, opt1, got = step(card, opt_card, batch)
+    assert not any(launch_counts().values())
+    cpu1, opt_cpu1, want = step(cpu, opt_cpu, batch)
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(got[key].item(), want[key].item(),
+                                   rtol=tol, err_msg=key)
+    for got_tree, want_tree in ((card1, cpu1),
+                                (opt1["master"], opt_cpu1["master"]),
+                                (opt1["m"], opt_cpu1["m"]),
+                                (opt1["v"], opt_cpu1["v"])):
+        for a, b in zip(tree_leaves(got_tree), tree_leaves(want_tree)):
+            assert a.device.type == cuda.type
+            _lm_close(a, b, tol)
+
+
+def test_gnn_segment_ops_on_card_equal_cpu(cuda):
+    """``gather_scatter``'s max and min bit for bit on the card (node 3's
+    edges all masked: ``finfo`` extremes; nodes 8, 9 with none: 0), its sum
+    and ``segment_mean`` within 1e-6; out-of-range ids dropped alike."""
+    from repro_torch.models import gnn
+
+    gen_ = torch.Generator().manual_seed(4)
+    h = torch.randn(10, 6, generator=gen_)
+    src = torch.tensor([0, 1, 2, -1, 4, 5, 6, 7, 12, -12, 1, 2])
+    dst = torch.tensor([1, 2, 3, 3, 0, 4, 5, 6, 7, 1, -1, 20])
+    mask = torch.tensor([1, 1, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1], dtype=torch.bool)
+    for reduce in ("sum", "max", "min"):
+        want = gnn.gather_scatter(h, src, dst, mask, 10, reduce)
+        got = gnn.gather_scatter(h.to(cuda), src.to(cuda), dst.to(cuda),
+                                 mask.to(cuda), 10, reduce).cpu()
+        if reduce == "sum":
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(got, want)
+    m_cpu, c_cpu = gnn.segment_mean(h[src.clamp(0, 9)], dst, 10, mask)
+    m_card, c_card = gnn.segment_mean(h[src.clamp(0, 9)].to(cuda),
+                                      dst.to(cuda), 10, mask.to(cuda))
+    torch.testing.assert_close(m_card.cpu(), m_cpu, rtol=1e-6, atol=1e-6)
+    assert torch.equal(c_card.cpu(), c_cpu)
+
+
+@pytest.fixture
+def nccl_pipe(cuda, tmp_path):
+    """A one-rank NCCL group and a (1, 1) ``("pipe", "data")`` mesh."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_test_mesh(1, ("pipe", "data"), (1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_pipeline_on_card_is_lm_loss(nccl_pipe):
+    """``make_pp_loss_fn`` with one stage on a one-rank NCCL ``("pipe",
+    "data")`` mesh, in float32 on the card: the loss is the mean of
+    ``lm_loss`` over the microbatches (1e-6 relative), and its gradient
+    that mean's (1e-5 of each leaf's largest magnitude); no kernel
+    launched."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import pipeline as pp_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.tree import tree_unflatten
+
+    cfg = dataclasses.replace(get("qwen3_0_6b").smoke_config,
+                              param_dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (3, 2, 17),
+                           generator=torch.Generator().manual_seed(1))
+    par = Parallelism(mesh=nccl_pipe, dp_axes=("data",), tp_axis="model")
+    loss_fn = pp_mod.make_pp_loss_fn(cfg, par, pp_mod.PipelineConfig(1, 3))
+    staged = pp_mod.stageify_params(params, 1, 0)
+
+    def value_and_grad(fn, tree):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+        loss = fn(tree_unflatten(tree, leaves))
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    reset_launch_counts()
+    got, g_pp = value_and_grad(lambda p: loss_fn(p, {"tokens": tokens}),
+                               staged)
+    assert not any(launch_counts().values())
+    want, g_ref = value_and_grad(lambda p: sum(
+        tfm.lm_loss(p, {"tokens": tokens[i]}, cfg, Parallelism.none())
+        for i in range(3)) / 3, params)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    for a, b in zip(g_pp, g_ref):
+        _lm_close(a.reshape(b.shape), b.cpu(), 1e-5)

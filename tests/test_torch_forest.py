@@ -104,6 +104,29 @@ def test_build_csr_matches():
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("ids,n", [
+    (([0, 1, 2], [1, 2, -1]), 3),      # -1: add.at's slot 0
+    (([0, -3, 2], [1, 2, -5]), 3),     # wraps to the last slots
+    (([], []), 4),                     # no edges
+    (([0, 1], [1, 3]), 3),             # id n: add.at raises
+    (([0, 1], [1, -6]), 3),            # id below -(n + 2): raises
+])
+def test_build_csr_out_of_range_ids_as_reference(ids, n):
+    src, dst = (np.array(a, np.int32) for a in ids)
+    outcomes = []
+    for fn in (jds.build_csr, tds.build_csr):
+        try:
+            outcomes.append(fn(src, dst, n))
+        except IndexError:
+            outcomes.append(IndexError)
+    want, got = outcomes
+    if want is IndexError:
+        assert got is IndexError
+    else:
+        for a, b in zip(want, got):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 # ------------------------------------------------------------------ forests
 @pytest.mark.parametrize("world", WORLDS, ids=IDS)
 def test_spanning_forest_matches(world):

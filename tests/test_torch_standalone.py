@@ -43,7 +43,11 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.qwen3_14b",
           "repro_torch.configs.stablelm_12b", "repro_torch.models.moe",
           "repro_torch.launch.train", "repro_torch.configs.dbrx_132b",
-          "repro_torch.configs.qwen3_moe_235b_a22b")
+          "repro_torch.configs.qwen3_moe_235b_a22b",
+          "repro_torch.models.gnn", "repro_torch.models.pipeline",
+          "repro_torch.data.sampler", "repro_torch.data",
+          "repro_torch.configs.graphsage_reddit", "repro_torch.configs.pna",
+          "repro_torch.configs.egnn", "repro_torch.configs.gatedgcn")
 
 _PROBE = """
 import importlib, pkgutil, sys
