@@ -328,6 +328,22 @@ Phases, one JSON line each:
              (``PP_CHECK_TOL``), then cold and warm ``make_pp_train_step``
              steps (tokens/s, peak bytes). ``gnn_pp_phases``: their
              seconds. Every line holds the five kernels' launch counts at 0.
+13. the dry run and training over a mesh — ``dryrun``:
+             ``launch/dryrun.py::run_cell`` with fake tensors on ``cuda``
+             on the single (16, 16) mesh of 256 fake ranks for one cell of
+             each family (``DRYRUN_CELLS``): status, per-rank flops, bytes,
+             collective bytes, memory, roofline terms, seconds.
+             ``dryrun_check``: the dry run of Qwen3-0.6B's donated train
+             step at ``lm_train``'s B 8 x 4,096 on a one-rank fake world
+             (L = 2, 4 probes, extrapolated) against the same warm step's
+             ``torch.cuda.max_memory_allocated`` (``DRYRUN_CHECK_RANGE``),
+             and its flops over the step's seconds. ``mesh_train``: one
+             ``DTensor`` train step of Qwen3-0.6B on a one-rank NCCL (data,
+             model) mesh, its float32 loss and gradients against plain
+             tensors (``MESH_TRAIN_TOL``), a donated float32 step against
+             the pure one bit for bit, its bf16 step's seconds and peak
+             bytes beside ``lm_train``'s. ``dryrun_mesh_phases``: their
+             seconds. Every line holds the five kernels' launch counts at 0.
 
 Then the card's name and power limit (nvidia-smi), the kernels line, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -354,6 +370,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 #: the serving report's clock-free view (``torch_serve_report.py``) and the
@@ -486,6 +503,7 @@ from repro_torch.models.transformer import Parallelism
 from repro_torch.models.transformer import init_cache as lm_init_cache
 from repro_torch.models.transformer import init_params as lm_init
 from repro_torch.models.transformer import lm_loss
+from repro_torch.models.transformer import param_specs as param_specs_lm
 from repro_torch.launch import serve as serve_lm
 from repro_torch.launch import train as train_lm
 from repro_torch.optim import (
@@ -496,6 +514,7 @@ from repro_torch.optim import (
     cosine_schedule,
     decompress_int8,
 )
+from repro_torch.optim.adamw import zero1_specs
 from repro_torch.optim.compression import compressed_psum_tree
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.obs import (
@@ -4871,6 +4890,276 @@ def phase_gnn_pp(smi: str) -> None:
           "launches": no_launches("gnn_pp_phases")})
 
 
+#: dryrun: one cell of each family on the single (16, 16) mesh over a fake
+#: world of 256 ranks, fake tensors on the card's device type
+DRYRUN_CELLS = (("qwen3_0_6b", "train_4k"), ("qwen3_moe_235b_a22b",
+                                             "decode_32k"),
+                ("graphsage_reddit", "ogb_products"),
+                ("sasrec", "retrieval_cand"), ("bridges_dense", "fig2_dense"))
+#: dryrun_check: the predicted peak (arguments plus temp) over the measured
+#: one of the same donated step must lie in this range
+DRYRUN_CHECK_RANGE = (0.75, 1.25)
+#: mesh_train: the DTensor step against the plain one in float32 at
+#: lm_train_check's batch (the same sums on one rank, but the vocabulary
+#: cross entropy's logsumexp and the kv heads' gather in another order):
+#: loss within 1e-5 relative, every gradient leaf within 1e-4 of its scale
+MESH_TRAIN_TOL = {"loss_rtol": 1e-5, "leaf": 1e-4}
+#: the AdamW step count of the donated-against-pure check: past
+#: make_lm_train_step's warmup of 200, so the params move
+MESH_TRAIN_OPT_STEP = 300
+
+
+def dryrun_lm_step(cfg, n_layers: int, mesh, batch: int, seq: int):
+    """The donated train step of ``cfg`` cut to ``n_layers`` as a dry-run
+    workload on ``mesh`` (params by ``param_specs``, the state by
+    ``zero1_specs``, tokens over ``data``), traced; (metrics, memory)."""
+    from repro_torch.launch.dryrun import trace_workload
+    from repro_torch.launch.workloads import (SDS, _eval_shape, fake_mode,
+                                              sanitized)
+
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    par = Parallelism(mesh=mesh, dp_axes=("data",), tp_axis="model")
+    with fake_mode():
+        params = _eval_shape(lambda: lm_init(
+            cfg, torch.Generator().manual_seed(SEED), DEVICE))
+        opt = _eval_shape(adamw_init, params)
+        pspecs = param_specs_lm(cfg, par)
+        ospecs = zero1_specs(pspecs, "data", params, dp_size=1)
+        wl = {"fn": make_lm_train_step(cfg, par, AdamWConfig(), donate=True),
+              "args": (params, opt, {"tokens": SDS((batch, seq + 1),
+                                                   torch.int32, DEVICE)}),
+              "in_shardings": (sanitized(mesh, pspecs),
+                               sanitized(mesh, ospecs),
+                               {"tokens": (("data",), None)})}
+    return trace_workload(wl, mesh)
+
+
+def phase_dryrun(smi: str) -> None:
+    """``launch/dryrun.py::run_cell`` on the card's device type for one
+    cell of each family (``DRYRUN_CELLS``): the fake world, the fake
+    kernels and the islands under PyTorch's CUDA build. Each record's
+    status, per-rank flops, bytes, collective bytes, memory and roofline
+    terms, and its seconds; the five kernels launch none."""
+    from repro_torch.launch.dryrun import run_cell
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rec = run_cell(arch, shape, "single", Path(tmp), force=True,
+                           device="cuda")
+            seconds = time.perf_counter() - t0
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {arch} {shape}: "
+                                     f"{rec.get('error')}")
+            emit({"phase": "dryrun", "arch": arch, "shape": shape,
+                  "mesh": "single", "status": rec["status"],
+                  "analysis": {k: rec["analysis"][k] for k in (
+                      "flops", "bytes accessed", "collective_bytes",
+                      "method")},
+                  "memory": rec["memory"], "roofline": rec["roofline"],
+                  "seconds": seconds,
+                  "launches": no_launches(f"dryrun {arch}"),
+                  "nvidia_smi": smi})
+
+
+def phase_dryrun_check(smi: str) -> None:
+    """The dry run's model of Qwen3-0.6B's donated train step at
+    ``lm_train``'s batch on a one-rank fake world, probed at L = 2 and 4
+    and extrapolated to 28 layers, against the same warm step on the card
+    (plain tensors): the predicted peak (arguments plus temp) over
+    ``torch.cuda.max_memory_allocated``, which must lie in
+    ``DRYRUN_CHECK_RANGE``, and the predicted flops over the warm step's
+    seconds."""
+    from repro_torch.launch.dryrun import fake_world, probe_line
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = lm_get(LM_CHECK_ARCH).config
+    t0 = time.perf_counter()
+    probes = {}
+    with fake_world(1):
+        mesh = make_test_mesh(1, ("data", "model"), (1, 1),
+                              device_type=DEVICE)
+        for n in (2, 4):
+            probes[n] = dryrun_lm_step(cfg, n, mesh, LM_TRAIN_BATCH,
+                                       LM_TRAIN_S)
+    trace_s = time.perf_counter() - t0
+
+    def line(get):
+        return probe_line(get(probes[2]), get(probes[4]), cfg.n_layers)
+
+    args_b = line(lambda p: p[1]["argument_size_in_bytes"])
+    temp_b = line(lambda p: p[1]["temp_size_in_bytes"])
+    flops = line(lambda p: p[0]["flops"])
+    params = lm_init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    opt = adamw_init(params)
+    step = make_lm_train_step(cfg, Parallelism.none(), AdamWConfig(),
+                              donate=True)
+    data = SyntheticTokens(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_S, seed=SEED)
+    params, opt, _ = step(params, opt, data.batch_at(0))  # cold
+    (params, opt, got), rec = timed(lambda: step(params, opt,
+                                                 data.batch_at(1)))
+    if not math.isfinite(got["loss"].item()):
+        raise AssertionError("dryrun_check: a non-finite loss")
+    predicted = args_b + temp_b
+    ratio = predicted / rec["peak_device_bytes"]
+    emit({"phase": "dryrun_check", "arch": LM_CHECK_ARCH,
+          "shape": {"B": LM_TRAIN_BATCH, "S": LM_TRAIN_S},
+          "method": "one-rank fake world, probes L=(2, 4) -> 28",
+          "predicted_argument_bytes": args_b, "predicted_temp_bytes": temp_b,
+          "predicted_peak_bytes": predicted,
+          "measured_peak_bytes": rec["peak_device_bytes"],
+          "ratio": ratio, "range": DRYRUN_CHECK_RANGE,
+          "predicted_flops": flops, "warm_step_s": rec["seconds"],
+          "predicted_flops_per_s": flops / rec["seconds"],
+          "trace_s": trace_s, "launches": no_launches("dryrun_check"),
+          "nvidia_smi": smi})
+    if not DRYRUN_CHECK_RANGE[0] <= ratio <= DRYRUN_CHECK_RANGE[1]:
+        raise AssertionError(f"dryrun_check: predicted {predicted} B, "
+                             f"measured {rec['peak_device_bytes']} B")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_grads(params, batch, cfg, par) -> tuple:
+    """``lm_loss`` and its gradient leaves, whole, of ``params`` (plain or
+    ``DTensor``s)."""
+    from repro_torch.training.steps import over_mesh
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with over_mesh(leaves):
+        loss = lm_loss(tree_unflatten(params, leaves), batch, cfg, par)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), [g.full_tensor() if isinstance(g, DTensor) else g
+                         for g in grads]
+
+
+def donated_against_pure(params, cfg, par, batch) -> float:
+    """One donated and one pure ``make_lm_train_step`` step over the
+    ``DTensor`` ``params`` from the same params, AdamW state (past the
+    warmup, so the params move) and batch: the largest absolute
+    difference over every param, master, m and v leaf (0 when the donated
+    step writes the pure step's bits, as an elementwise update must)."""
+    state = adamw_init(params)
+    state["step"] = torch.full((), MESH_TRAIN_OPT_STEP, dtype=torch.int32,
+                               device=DEVICE)
+    want_p, want_s, _ = make_lm_train_step(cfg, par, AdamWConfig())(
+        params, state, batch)
+    got_p, got_s, _ = make_lm_train_step(cfg, par, AdamWConfig(),
+                                         donate=True)(
+        params, tree_map(torch.clone, state), batch)
+    keys = ("master", "m", "v")
+    worst = 0.0
+    for a, b in zip(tree_leaves(got_p) + tree_leaves([got_s[k] for k in keys]),
+                    tree_leaves(want_p) + tree_leaves([want_s[k]
+                                                       for k in keys])):
+        worst = max(worst, float((a.to_local().float()
+                                  - b.to_local().float()).abs().max()))
+    return worst
+
+
+def phase_mesh_train(smi: str) -> None:
+    """One ``make_lm_train_step`` step of Qwen3-0.6B's ``CONFIG`` over
+    ``DTensor`` params placed by ``param_specs`` on a one-rank NCCL (data,
+    model) mesh. In float32 at ``lm_train_check``'s batch: the loss and
+    every gradient leaf against the plain step's from the same params and
+    batch (``MESH_TRAIN_TOL``), and one donated step against the pure one
+    from the same params, state and batch, bit for bit
+    (``donated_against_pure``). In bf16 at ``lm_train``'s batch: a cold
+    and a warm step, seconds and peak bytes beside ``lm_train``'s. One
+    rank only: several cards have not run."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import spec_placements
+
+    base = lm_get(LM_CHECK_ARCH).config
+    with one_rank_nccl_mesh(("data", "model")) as mesh:
+        par = Parallelism(mesh=mesh, dp_axes=("data",), tp_axis="model")
+
+        def placed(params, cfg):
+            specs = param_specs_lm(cfg, par)
+            return tree_map(lambda t, sp: distribute_tensor(
+                t, mesh, spec_placements(mesh, sp), src_data_rank=None),
+                params, specs)
+
+        def tokens_on_mesh(batch):
+            return {"tokens": distribute_tensor(
+                torch.as_tensor(batch["tokens"], device=DEVICE), mesh,
+                spec_placements(mesh, (("data",), None)),
+                src_data_rank=None)}
+
+        cfg = dataclasses.replace(base, param_dtype="float32")
+        plain = lm_init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                        device=DEVICE)
+        batch = SyntheticTokens(cfg.vocab, LM_TRAIN_CHECK_BATCH,
+                                LM_TRAIN_CHECK_S, seed=SEED).batch_at(0)
+        want_loss, want = mesh_grads(plain, batch, cfg, Parallelism.none())
+        got_loss, got = mesh_grads(placed(plain, cfg), tokens_on_mesh(batch),
+                                   cfg, par)
+        worst = max(rel_err(a, b) for a, b in zip(got, want))
+        loss_err = abs(got_loss - want_loss) / abs(want_loss)
+        del got, want
+        donated_diff = donated_against_pure(placed(plain, cfg), cfg, par,
+                                            tokens_on_mesh(batch))
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (loss_err <= MESH_TRAIN_TOL["loss_rtol"]
+                and worst <= MESH_TRAIN_TOL["leaf"]):
+            raise AssertionError(f"mesh_train: loss off by {loss_err}, a "
+                                 f"gradient leaf by {worst} of its scale")
+        if donated_diff:
+            raise AssertionError(f"mesh_train: the donated step differs "
+                                 f"from the pure one by {donated_diff}")
+        params = placed(lm_init(base, torch.Generator(device=DEVICE)
+                                .manual_seed(SEED), device=DEVICE), base)
+        opt = adamw_init(params)
+        step = make_lm_train_step(base, par, AdamWConfig(), donate=True)
+        data = SyntheticTokens(base.vocab, LM_TRAIN_BATCH, LM_TRAIN_S,
+                               seed=SEED)
+        walls = []
+        for i in range(2):
+            (params, opt, metrics), rec = timed(lambda: step(
+                params, opt, tokens_on_mesh(data.batch_at(i))))
+            walls.append(rec)
+            if not math.isfinite(metrics["loss"].full_tensor().item()):
+                raise AssertionError("mesh_train: a non-finite loss")
+        emit({"phase": "mesh_train", "arch": LM_CHECK_ARCH,
+              "mesh": {"data": 1, "model": 1, "backend": "nccl"},
+              "check": {"dtype": "float32", "batch": LM_TRAIN_CHECK_BATCH,
+                        "S": LM_TRAIN_CHECK_S, "loss": got_loss,
+                        "loss_rel_err": loss_err,
+                        "max_err_over_leaf_scale": worst,
+                        "tolerance": MESH_TRAIN_TOL,
+                        "donated_max_abs_diff": donated_diff},
+              "run": {"dtype": base.param_dtype, "batch": LM_TRAIN_BATCH,
+                      "S": LM_TRAIN_S, "cold_s": walls[0]["seconds"],
+                      "warm_s": walls[1]["seconds"],
+                      "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_S
+                      / walls[1]["seconds"],
+                      "peak_device_bytes": walls[1]["peak_device_bytes"]},
+              "beside": "lm_train (plain tensors, same width and batch)",
+              "note": "one rank: several cards have not run",
+              "launches": no_launches("mesh_train"), "nvidia_smi": smi})
+        del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun_mesh(smi: str) -> None:
+    """The dry run and training over a mesh: ``dryrun``,
+    ``dryrun_check``, ``mesh_train``, and their seconds."""
+    t0 = time.perf_counter()
+    phase_dryrun(smi)
+    phase_dryrun_check(smi)
+    phase_mesh_train(smi)
+    emit({"phase": "dryrun_mesh_phases", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4958,6 +5247,7 @@ def main() -> int:
     phase_lm(smi)
     phase_lm_train_moe(smi)
     phase_gnn_pp(smi)
+    phase_dryrun_mesh(smi)
 
     kernels = []
     for name, rec in checks.items():

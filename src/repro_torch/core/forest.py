@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.graph.datastructs import INF32, INT, EdgeList, take
+from repro_torch.graph.datastructs import INF32, INT, EdgeList, host_value, take
 from repro_torch.kernels.boruvka_round.ops import (
     boruvka_round,
     boruvka_round_bytes,
@@ -121,7 +121,8 @@ def _forest_impl(src, dst, mask, n: int, init_labels=None, mark=None):
     while changed and rounds < log_n + 2:
         labels, chosen, hook = hook_round(src, dst, valid, labels, n)
         forest[chosen] = True  # slot E is the dump slot, sliced off below
-        changed = bool(hook.any())  # the round's one host sync
+        # the round's one host sync (a dry run's fake tensor: one pass)
+        changed = host_value(hook.any(), if_fake=False)
         rounds += 1
         if mark is not None:
             mark()
@@ -201,7 +202,8 @@ def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round,
         # slot E is the dump slot, sliced off below
         forest[torch.where(newly, best_e, E)] = True
         visited, frontier = visited | newly, newly
-        changed = bool(newly.any())  # the round's one host sync
+        # the round's one host sync (a dry run's fake tensor: one pass)
+        changed = host_value(newly.any(), if_fake=False)
         rounds += 1
         if mark is not None:
             mark()

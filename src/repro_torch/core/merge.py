@@ -42,6 +42,7 @@ import math
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 import torch.distributed as dist
 
 from repro_torch.core.certificate import certificate_capacity, sparse_certificate
@@ -592,7 +593,9 @@ def flattened_ranks(mesh, machine_axes) -> list[list[int]]:
     dims = [names.index(a) for a in machine_axes]
     others = [d for d in range(len(names)) if d not in dims]
     m = math.prod(mesh.mesh.shape[d] for d in dims)
-    return mesh.mesh.permute(*others, *dims).reshape(-1, m).tolist()
+    # the rank grid's values, also under a dry run's fake mode
+    with unset_fake_temporarily():
+        return mesh.mesh.permute(*others, *dims).reshape(-1, m).tolist()
 
 
 _GROUPS: dict[tuple, MachineGroup] = {}

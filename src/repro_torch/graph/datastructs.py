@@ -19,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 
 INT = torch.int32
 INF32 = int(np.iinfo(np.int32).max)
@@ -35,6 +37,26 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def is_fake(t) -> bool:
+    """A tensor of the dry run (``launch/dryrun.py``): a ``FakeTensor``, or
+    a ``DTensor`` over one. It has a shape and no data."""
+    if isinstance(t, DTensor):
+        t = t._local_tensor
+    return isinstance(t, FakeTensor)
+
+
+def host_value(t, if_fake):
+    """``t``'s value on the host (a Python number, ``t`` itself if it is
+    one), or ``if_fake`` for a fake tensor, which has no value: the one
+    place where the dry run answers a host sync. A round loop's exit test
+    passes the answer that stops it after one pass."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if is_fake(t):
+        return if_fake
+    return t.item()
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Public connectivity-round ops (the Borůvka round and the scan-first
 frontier round): the Hopper kernel for CUDA tensors, the plain version for
-CPU tensors, and nothing else."""
+CPU tensors, and nothing else; a dry run's fake tensor
+(``launch/dryrun.py``) gets the results' shapes and dtypes only."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.graph.datastructs import INT
+from repro_torch.graph.datastructs import INT, is_fake
 from repro_torch.kernels.boruvka_round.kernel import (
     boruvka_round_cuda,
     frontier_round_cuda,
@@ -71,6 +72,9 @@ def boruvka_round(src, dst, mask, labels, num_segments: int):
     src, dst: int32[E]; mask: bool[E]; labels: int32[n]; one device.
     """
     _check_edges(src, dst, mask, {"labels": (labels, INT)}, num_segments)
+    if is_fake(src):
+        # a dry run's fake tensors: the result's shape and dtype only
+        return src.new_empty((num_segments,))
     if kernel_path(src.device) == "cuda":
         return boruvka_round_cuda(src, dst, mask, labels, num_segments)
     return boruvka_round_ref(src, dst, mask, labels, num_segments)
@@ -89,6 +93,8 @@ def frontier_round(src, dst, mask, frontier, visited, num_segments: int):
     if frontier.shape != visited.shape:
         raise ValueError(f"frontier and visited differ in length: "
                          f"{tuple(frontier.shape)} vs {tuple(visited.shape)}")
+    if is_fake(src):
+        return src.new_empty((num_segments,)), src.new_empty((num_segments,))
     if kernel_path(src.device) == "cuda":
         return frontier_round_cuda(src, dst, mask, frontier, visited,
                                    num_segments)

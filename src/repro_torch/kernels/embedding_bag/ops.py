@@ -1,9 +1,11 @@
 """Public embedding_bag op: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors, and nothing else."""
+version for CPU tensors, and nothing else; a dry run's fake tensor
+(``launch/dryrun.py``) gets the result's shape and dtype only."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.graph.datastructs import is_fake
 from repro_torch.kernels.embedding_bag.kernel import (
     DTYPES,
     MODES,
@@ -81,6 +83,9 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     tensors = (table, indices) + (() if mask is None else (mask,))
     if len({t.device for t in tensors}) != 1:
         raise ValueError("table, indices and mask must lie on one device")
+    if is_fake(table):
+        # a dry run's fake tensors: the result's shape and dtype only
+        return table.new_empty((indices.shape[0], table.shape[1]))
     if kernel_path(table.device) == "cuda":
         if table.dtype not in DTYPES:
             raise TypeError(f"the kernel takes tables of {list(DTYPES)}, got "

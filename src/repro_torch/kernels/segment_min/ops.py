@@ -1,10 +1,11 @@
 """Public segment_min op: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors, and nothing else."""
+version for CPU tensors, and nothing else; a dry run's fake tensor
+(``launch/dryrun.py``) gets the result's shape and dtype only."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.graph.datastructs import INT
+from repro_torch.graph.datastructs import INT, is_fake
 from repro_torch.kernels.segment_min.kernel import check_key_space, segment_min_cuda
 from repro_torch.kernels.segment_min.ref import segment_min_ref
 
@@ -34,6 +35,9 @@ def segment_min(keys: torch.Tensor, ids: torch.Tensor,
     if not (keys.is_contiguous() and ids.is_contiguous()):
         raise ValueError("keys and ids must be contiguous")
     check_key_space(keys.shape[0], num_segments)
+    if is_fake(keys):
+        # a dry run's fake tensors: the result's shape and dtype only
+        return keys.new_empty((num_segments,))
     if kernel_path(keys.device) == "cuda":
         return segment_min_cuda(keys, ids, num_segments)
     return segment_min_ref(keys, ids, num_segments)

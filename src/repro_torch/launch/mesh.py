@@ -58,8 +58,10 @@ def machine_axes_for(mesh: DeviceMesh) -> tuple:
 def spec_placements(mesh: DeviceMesh, spec: tuple) -> list:
     """The ``DTensor`` placements of ``spec`` on ``mesh``: per mesh
     dimension, ``Shard(d)`` if the spec puts that axis on tensor dimension
-    ``d``, else ``Replicate()``. Axes the mesh lacks are dropped, as the
-    reference's ``shard`` drops them. A dimension split over several axes
+    ``d``, else ``Replicate()`` (as for an axis of size one, which splits
+    nothing: ``DTensor`` cannot reshape a tensor dimension of size one
+    that is sharded). Axes the mesh lacks are dropped, as the reference's
+    ``shard`` drops them. A dimension split over several axes
     must list them in the mesh's order (``DTensor`` splits in that
     order)."""
     names = tuple(mesh.mesh_dim_names)
@@ -74,4 +76,5 @@ def spec_placements(mesh: DeviceMesh, spec: tuple) -> list:
             if a in dim_of:
                 raise ValueError(f"spec {spec} uses axis {a!r} twice")
             dim_of[a] = d
-    return [Shard(dim_of[a]) if a in dim_of else Replicate() for a in names]
+    return [Shard(dim_of[a]) if a in dim_of and mesh.size(i) > 1
+            else Replicate() for i, a in enumerate(names)]

@@ -31,10 +31,13 @@ aggregation gathers and adds ``EDGE_CHUNK`` edges at a time: the sums are
 the same, and the gathered messages of an edge set of tens of millions
 (E x d floats) never exist at once, in the forward or the backward pass.
 
-``par``: the reference's ``node_classification_loss`` places the edge
-buffers on the mesh's machine axes (``shard``), which changes no value; the
-port takes ``par`` and computes on one device. The edge-sharded form over
-ranks comes with training over a mesh (ROADMAP queue A 11.6).
+Over a mesh (``par`` on a ``DeviceMesh``, or ``DTensor`` inputs) the edge
+buffers are split over the mesh's axes, the nodes and the weights
+replicated, as the reference's ``node_classification_loss`` places them
+(``shard``): a gather takes each rank's own edges from the replicated
+nodes, and a segment sum, max or min reduces the rank's edges into every
+segment and then all-reduces the partial results by SUM, MAX or MIN over
+the edge axes (GSPMD's partial reduction), the rules above kept.
 
 Float32 products go to ``torch.matmul``, which runs them in full float32
 unless the caller enables TF32.
@@ -43,12 +46,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (
+    DTensor,
+    Partial,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.graph.datastructs import resolve_device
+from repro_torch.models.layers import island, reduce_over
+from repro_torch.optim.tree import tree_map
 
 #: edges GraphSAGE's full-graph aggregation gathers at once (2 GB of
 #: float32 messages at its width of 128)
@@ -108,6 +122,8 @@ def _scatter_index(idx: torch.Tensor, n: int) -> torch.Tensor:
 def _segsum(vals: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
     """``vals`` summed into ``n`` segments by ``rows`` (``_scatter_index``'s,
     so ``n`` is the dump row)."""
+    if isinstance(rows, DTensor):
+        return _segment_island(vals, rows, n, "sum")
     out = vals.new_zeros((n + 1, *vals.shape[1:]))
     return out.index_add_(0, rows, vals)[:n]
 
@@ -116,10 +132,85 @@ def _segext(vals: torch.Tensor, rows: torch.Tensor, n: int,
             reduce: str) -> torch.Tensor:
     """Segment max (``amax``) or min (``amin``) into ``n`` segments, an
     empty one -inf or +inf, as ``jax.ops.segment_max/min`` give it."""
+    if isinstance(rows, DTensor):
+        return _segment_island(vals, rows, n, reduce)
     fill = float("-inf") if reduce == "amax" else float("inf")
     out = vals.new_full((n + 1, *vals.shape[1:]), fill)
     index = rows.reshape(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
     return out.scatter_reduce(0, index, vals, reduce)[:n]
+
+
+class _SplitExtremum(torch.autograd.Function):
+    """Segment max or min of the rank's edges ``v`` (rows ``r``, ``n`` the
+    dump row) all-reduced over ``groups``. Backward: an edge whose value
+    is its segment's extremum takes the segment's cotangent over the
+    number of such edges on every rank (ties share it evenly, as in JAX's
+    and torch's own segment max)."""
+
+    @staticmethod
+    def forward(ctx, v, r, n, reduce, groups):
+        op = "max" if reduce == "amax" else "min"
+        fill = float("-inf") if reduce == "amax" else float("inf")
+        index = r.reshape(-1, *([1] * (v.dim() - 1))).expand_as(v)
+        out = v.new_full((n + 1, *v.shape[1:]), fill).scatter_reduce(
+            0, index, v, reduce)[:n]
+        out = reduce_over(out, groups, op)
+        pad = torch.cat([out, out.new_full((1, *out.shape[1:]), fill)])
+        hit = (v == pad[r]) & (r < n).reshape(index.shape[:1] + (1,) * (
+            v.dim() - 1))
+        count = reduce_over(hit.to(v.dtype).new_zeros(pad.shape).index_add_(
+            0, r, hit.to(v.dtype)), groups)
+        ctx.save_for_backward(r, hit, count)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        r, hit, count = ctx.saved_tensors
+        g = torch.cat([g, g.new_zeros((1, *g.shape[1:]))])
+        share = g[r] / count[r].clamp_min(1)
+        return torch.where(hit, share, 0), None, None, None, None
+
+
+def _edge_groups(mesh, rows: DTensor) -> list:
+    """The process groups of the mesh axes over which the edges are
+    split: a segment op's partial results are reduced over these."""
+    return [mesh.get_group(i) for i, p in enumerate(rows.placements)
+            if p.is_shard()]
+
+
+def _segment_island(vals, rows, n: int, reduce: str):
+    """A segment op over edges split across ranks (``rows`` a ``DTensor``
+    sharded on its first dimension): an island that reduces the rank's
+    own edges into all ``n`` segments, then all-reduces them over the
+    edge axes by SUM, MAX or MIN (GSPMD's partial reduction). The result
+    is replicated; the JAX drop and +-inf rules hold as on one device."""
+    mesh = rows.device_mesh
+    es = tuple(rows.placements)
+    out = tuple(Replicate() for _ in es)
+
+    def body(v, r):
+        groups = _edge_groups(mesh, rows)
+        if reduce == "sum":
+            part = v.new_zeros((n + 1, *v.shape[1:])).index_add_(0, r, v)[:n]
+            return reduce_over(part, groups)
+        return _SplitExtremum.apply(v, r, n, reduce, groups)
+
+    return island(body, mesh, (es, es), (es, es), (out,))(vals, rows)
+
+
+def _rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h``'s rows ``idx`` (``index_select``); over a mesh, with ``idx``
+    a ``DTensor`` of split edges, an island where each rank gathers its
+    own edges from the replicated ``h`` (whose gradient is then partial
+    over the edge axes)."""
+    if not isinstance(idx, DTensor):
+        return torch.index_select(h, 0, idx)
+    mesh = idx.device_mesh
+    ins = tuple(idx.placements)
+    rep = tuple(Replicate() for _ in ins)
+    grad = tuple(Partial() if p.is_shard() else Replicate() for p in ins)
+    return island(lambda hl, il: torch.index_select(hl, 0, il), mesh,
+                  (rep, ins), (grad, ins), (ins,))(h, idx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +262,7 @@ def _ext(h, e: _Edges, reduce: str):
     """``gather_scatter``'s max or min on resolved edges."""
     info = torch.finfo(h.dtype)
     fill = info.min if reduce == "amax" else info.max
-    msg = torch.where(e.mask[:, None], torch.index_select(h, 0, e.src), fill)
+    msg = torch.where(e.mask[:, None], _rows(h, e.src), fill)
     out = _segext(msg, e.seg, e.n, reduce)
     return torch.where(torch.isfinite(out), out, 0)
 
@@ -194,7 +285,7 @@ def gather_scatter(h, src, dst, mask, n, reduce="sum"):
     e = _Edges(_gather_index(src, h.shape[0]), _gather_index(dst, n),
                _scatter_index(dst, n), mask, n)
     if reduce == "sum":
-        msg = torch.index_select(h, 0, e.src)
+        msg = _rows(h, e.src)
         return _segsum(torch.where(mask[:, None], msg, 0), e.seg, n)
     if reduce in ("max", "min"):
         return _ext(h, e, "amax" if reduce == "max" else "amin")
@@ -236,9 +327,12 @@ def _mean_aggregate(h, e: _Edges):
     """``segment_mean(h[src], dst, n, mask)[0]``, the masked messages
     gathered and added ``EDGE_CHUNK`` edges at a time in both passes."""
     w = e.mask.to(h.dtype)
-    s = _WeightedGatherSum.apply(h, e.src, e.seg, w, e.n)
+    if isinstance(e.src, DTensor):
+        s = _segsum(_rows(h, e.src) * w[:, None], e.seg, e.n)
+    else:
+        s = _WeightedGatherSum.apply(h, e.src, e.seg, w, e.n)[:e.n]
     c = _segsum(w, e.seg, e.n)
-    return s[:e.n] / torch.clamp(c[:, None], min=1.0)
+    return s / torch.clamp(c[:, None], min=1.0)
 
 
 def _l2_normalize(h):
@@ -323,7 +417,7 @@ def _pna(params, h, e: _Edges, cfg: GNNConfig):
     w = e.mask.to(h.dtype)
     deg = _segsum(w, e.seg, e.n)
     for lp in params["layers"]:
-        hs = torch.index_select(h, 0, e.src)
+        hs = _rows(h, e.src)
         mean = _segsum(hs * w[:, None], e.seg, e.n) / torch.clamp(
             deg[:, None], min=1.0)
         mx, mn = _ext(h, e, "amax"), _ext(h, e, "amin")
@@ -366,11 +460,9 @@ def _egnn(params, h, x, e: _Edges):
     wmask = e.mask[:, None]
     deg = _segsum(e.mask.to(x.dtype), e.seg, e.n)
     for lp in params["layers"]:
-        diff = (torch.index_select(x, 0, e.src)
-                - torch.index_select(x, 0, e.dst))  # [E, 3]
+        diff = _rows(x, e.src) - _rows(x, e.dst)  # [E, 3]
         d2 = (diff * diff).sum(-1, keepdim=True)
-        m_in = torch.cat([torch.index_select(h, 0, e.src),
-                          torch.index_select(h, 0, e.dst), d2], dim=-1)
+        m_in = torch.cat([_rows(h, e.src), _rows(h, e.dst), d2], dim=-1)
         m = F.silu(F.silu(m_in @ lp["phi_e1"]) @ lp["phi_e2"])
         m = torch.where(wmask, m, 0)
         # coordinate update (equivariant): x_i += mean_j (x_i-x_j) * phi_x(m_ij)
@@ -422,10 +514,10 @@ def _ln(x, w, eps=1e-5):
 
 def _gatedgcn(params, h, e: _Edges, cfg: GNNConfig):
     h = h @ params["embed"]
-    edge = params["e_embed"].expand(e.src.shape[0], cfg.d_hidden)
+    edge = params["e_embed"]  # [d]: every edge's, until the first update
     for lp in params["layers"]:  # the reference's lax.scan, in order
-        hs = torch.index_select(h, 0, e.src)
-        eh = (hs @ lp["A"] + torch.index_select(h, 0, e.dst) @ lp["B"]
+        hs = _rows(h, e.src)
+        eh = (hs @ lp["A"] + _rows(h, e.dst) @ lp["B"]
               + edge @ lp["C"])
         gate = torch.where(e.mask[:, None], torch.sigmoid(eh), 0)
         num = _segsum(gate * (hs @ lp["V"]), e.seg, e.n)
@@ -475,13 +567,41 @@ def _gold_logp(logits, labels):
 
 
 def node_classification_loss(params, g, cfg: GNNConfig, par=None):
-    """Full-graph training: cross entropy over the labelled nodes. ``par``
-    changes no value (the module's docstring)."""
-    logits = FORWARDS[cfg.arch](params, g, cfg)
-    dev = logits.device
-    gold = _gold_logp(logits, _tensor(g["labels"], dev))
-    lm = _tensor(g["label_mask"], dev, torch.float32)
-    return -(gold * lm).sum() / torch.clamp(lm.sum(), min=1.0)
+    """Full-graph training: cross entropy over the labelled nodes. With
+    ``par`` on a mesh the edge buffers are split over the mesh's machine
+    axes (the reference's ``shard``), the nodes and the parameters
+    replicated, and the segment ops reduce each rank's edges
+    (``_segment_island``). Plain tensors are taken as every rank's whole
+    copy: they are placed so, and the loss comes back as a plain tensor,
+    each parameter's gradient summed over the ranks."""
+    mesh = getattr(par, "mesh", None)
+    plain = mesh is not None and not isinstance(g["src"], DTensor)
+    if plain:
+        params, g = _placed(params, g, mesh)
+    with implicit_replication() if mesh is not None else nullcontext():
+        logits = FORWARDS[cfg.arch](params, g, cfg)
+        dev = logits.device
+        gold = _gold_logp(logits, _tensor(g["labels"], dev))
+        lm = _tensor(g["label_mask"], dev, torch.float32)
+        loss = -(gold * lm).sum() / torch.clamp(lm.sum(), min=1.0)
+    return loss.to_local() if plain else loss
+
+
+def _placed(params, g, mesh):
+    """Every rank's whole ``params`` and graph ``g`` as ``DTensor``s: the
+    edge buffers split over all of ``mesh``'s axes, the rest replicated
+    (its gradient summed over the ranks on the way back)."""
+    def rep(t):
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    edges = [Shard(0)] * mesh.ndim
+    out = {}
+    for key, val in g.items():
+        t = _tensor(val, mesh.device_type)
+        out[key] = (distribute_tensor(t, mesh, edges, src_data_rank=None)
+                    if key in ("src", "dst", "mask") else rep(t))
+    return tree_map(rep, params), out
 
 
 def egnn_batch_loss(params, batch, cfg: GNNConfig, par=None):

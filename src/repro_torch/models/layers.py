@@ -13,16 +13,83 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import spec_placements
+
+
 def shard(x: torch.Tensor, spec: tuple) -> torch.Tensor:
-    """The identity. In the reference this is ``with_sharding_constraint``,
-    a hint that GSPMD should lay ``x`` out by ``spec`` on the active mesh.
-    The port has no global array: a rank computes on its local tensor,
-    whose layout its code already chose, so there is nothing to constrain.
-    ``spec`` is a partition spec in the port's tuple form (one entry per
-    dimension: ``None``, an axis name or a tuple of names)."""
+    """``with_sharding_constraint``: a ``DTensor`` redistributed to the
+    placements of ``spec`` on its own mesh (``launch/mesh.py::
+    spec_placements``; axes the mesh lacks are dropped), through autograd;
+    any other tensor unchanged. A rank's plain local tensor already has the
+    layout its code chose, so there is nothing to constrain. ``spec`` is a
+    partition spec in the port's tuple form (one entry per dimension:
+    ``None``, an axis name or a tuple of names)."""
+    if not isinstance(x, DTensor):
+        return x
+    want = spec_placements(x.device_mesh, spec)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward: ``x`` all-reduced (``op``: ``sum`` or ``max``) over
+    ``group`` by a functional collective. Backward: the identity, as the
+    reduction of a tensor-parallel block whose result every rank then uses
+    alike (Megatron's ``g``): each rank's input takes the whole cotangent,
+    and the rank's gradients are partial sums over the group."""
+
+    @staticmethod
+    def forward(ctx, x, op, group):
+        c10d = torch.ops._c10d_functional
+        return c10d.wait_tensor(c10d.all_reduce(x.contiguous(), op,
+                                                group.group_name))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_over(x: torch.Tensor, groups, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over each process group of ``groups`` in turn
+    (``_Reduce``: backward the identity)."""
+    for group in groups:
+        x = _Reduce.apply(x, op, group)
     return x
+
+
+def mesh_placements(mesh, spec: tuple, partial=()) -> tuple:
+    """``spec``'s ``DTensor`` placements on ``mesh``, with ``Partial()`` on
+    the mesh axes named in ``partial``: the placements of a gradient that
+    each rank of those axes holds a part of."""
+    return tuple(Partial() if name in partial else p for name, p in
+                 zip(mesh.mesh_dim_names, spec_placements(mesh, spec)))
+
+
+def axis_part(mesh, axis):
+    """(this rank's index on ``axis``, the axis's size, [its group]); (0,
+    1, []) when the mesh lacks it."""
+    names = tuple(mesh.mesh_dim_names)
+    if axis not in names:
+        return 0, 1, []
+    return (mesh.get_local_rank(axis), mesh.size(names.index(axis)),
+            [mesh.get_group(axis)])
+
+
+def island(body, mesh, ins, grads, outs):
+    """``body`` as a ``local_map`` island over ``mesh``: its ``DTensor``
+    arguments arrive as their local shards of the placements ``ins`` (one
+    per argument, ``None`` for a non-tensor), its local gradients leave
+    under ``grads``, and its outputs are the ``DTensor``s of placements
+    ``outs`` (one per output). The counterpart of the reference's
+    ``shard_map``."""
+    return local_map(body, out_placements=tuple(outs),
+                     in_placements=tuple(ins), in_grad_placements=tuple(grads),
+                     device_mesh=mesh, redistribute_inputs=True)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -180,6 +247,73 @@ def decode_attention(q, k_cache, v_cache, valid_len):
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
+def sharded_causal_attention(q, k, v, dp, tp, **kw):
+    """``chunked_causal_attention`` over ``DTensor``s: an island whose
+    rank takes its batch block (``dp``) and its block of q heads (``tp``)
+    with the kv heads those use, as GSPMD splits the reference's
+    attention. q: [B, S, Hq, Dh] head-sharded; k, v: [B, S, Hkv, Dh]
+    replicated over ``tp``, their gradients partial there."""
+    mesh = q.device_mesh
+    qs = mesh_placements(mesh, (dp, None, tp, None))
+    ks = mesh_placements(mesh, (dp, None, None, None))
+    kg = mesh_placements(mesh, (dp, None, None, None), partial=(tp,))
+    g = q.shape[2] // k.shape[2]
+
+    def body(ql, kl, vl):
+        r = axis_part(mesh, tp)[0]
+        hl = ql.shape[2]
+        idx = (r * hl + torch.arange(hl, device=ql.device)) // g
+        return chunked_causal_attention(ql, kl.index_select(2, idx),
+                                        vl.index_select(2, idx), **kw)
+
+    return island(body, mesh, (qs, ks, ks), (qs, kg, kg), (qs,))(q, k, v)
+
+
+def sharded_decode_attention(q, k, v, k_cache, v_cache, pos0: int,
+                             valid_len: int, dp, tp):
+    """``decode_attention`` against caches whose sequence is sharded over
+    ``tp`` (the reference's FlashDecoding layout), with the new rows ``k``,
+    ``v`` [B, S_new, Hkv, Dh] first written into the caches in place at
+    ``pos0``. A rank takes every q head, scores its block of the cache,
+    and the block maxima, the softmax sums and the weighted values are
+    all-reduced over ``tp``. Inference only."""
+    mesh = q.device_mesh
+    qs = mesh_placements(mesh, (dp, None, None, None))
+    cs = mesh_placements(mesh, (dp, tp, None, None))
+    if tuple(k_cache.placements) != cs or tuple(v_cache.placements) != cs:
+        # a redistributed cache would take the new rows in a copy
+        raise ValueError(f"the caches must be placed as {cs}, got "
+                         f"{k_cache.placements} and {v_cache.placements}")
+
+    def body(ql, kl, vl, ck, cv):
+        r, _, groups = axis_part(mesh, tp)
+        rows, s = ck.shape[1], kl.shape[1]
+        base = r * rows
+        lo, hi = max(pos0, base), min(pos0 + s, base + rows)
+        if lo < hi:
+            ck[:, lo - base:hi - base] = kl[:, lo - pos0:hi - pos0]
+            cv[:, lo - base:hi - base] = vl[:, lo - pos0:hi - pos0]
+        b, sq, hq, dh = ql.shape
+        hkv = ck.shape[2]
+        qf = ql.float().reshape(b, sq, hkv, hq // hkv, dh)
+        logits = torch.einsum("bqhgd,bkhd->bqhgk", qf,
+                              ck.float()) * dh ** -0.5
+        kv_pos = base + torch.arange(rows, device=ql.device)
+        q_pos = valid_len - sq + torch.arange(sq, device=ql.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]
+        logits = torch.where(mask[None, :, None, None, :], logits, -1e30)
+        m = reduce_over(logits.amax(-1, keepdim=True), groups, "max")
+        p = torch.exp(logits - m)
+        out = reduce_over(torch.einsum("bqhgk,bkhd->bqhgd", p, cv.float()),
+                          groups)
+        den = reduce_over(p.sum(-1), groups)
+        out = out / den[..., None].clamp_min(1e-30)
+        return out.reshape(b, sq, hq, dh).to(ql.dtype)
+
+    ins = (qs, qs, qs, cs, cs)
+    return island(body, mesh, ins, ins, (qs,))(q, k, v, k_cache, v_cache)
+
+
 def swiglu(x, w_gate, w_in, w_out):
     return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
 
@@ -196,22 +330,68 @@ def _chunk_loss(xi, ti, embed):
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 
-def chunked_cross_entropy(x, embed, targets, n_chunks: int = 8):
+def _vocab_parallel_loss(xi, ti, embed, dp, tp):
+    """``_chunk_loss`` over ``DTensor``s with the tied embedding
+    vocab-sharded over ``tp``: an island where a rank scores its batch
+    block against its rows of the vocabulary, and the row maxima, the
+    softmax sums and the gold logits are all-reduced over ``tp`` (the
+    [B, c, V] logits are never gathered). Returns the chunk's summed loss,
+    partial over the data axes."""
+    mesh = embed.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    data = tuple(a for a in (dp or ()) if a in names)
+    xs = mesh_placements(mesh, (dp, None, None))
+    ts = mesh_placements(mesh, (dp, None))
+    es = mesh_placements(mesh, (tp, None))
+    out = tuple(Partial() if a in data else Replicate() for a in names)
+
+    def body(x, t, e):
+        r, n, groups = axis_part(mesh, tp)
+        rows = e.shape[0]
+        v = rows * n
+        logits = x.float() @ e.float().T  # [B, c, V / tp]
+        m = reduce_over(logits.detach().amax(-1), groups, "max")
+        se = reduce_over(torch.exp(logits - m[..., None]).sum(-1), groups)
+        lse = m + torch.log(se)
+        wrapped = torch.where(t < 0, t + v, t).long()
+        loc = wrapped - r * rows
+        hit = (loc >= 0) & (loc < rows)
+        gold = logits.gather(-1, loc.clamp(0, rows - 1)[..., None])[..., 0]
+        gold = reduce_over(torch.where(hit, gold, 0.0), groups)
+        gold = torch.where((wrapped >= 0) & (wrapped < v), gold,
+                           float("nan"))
+        return (lse - gold).sum()
+
+    grads = (mesh_placements(mesh, (dp, None, None), partial=(tp,)), ts,
+             mesh_placements(mesh, (tp, None), partial=data))
+    return island(body, mesh, (xs, ts, es), grads, (out,))(xi, ti, embed)
+
+
+def chunked_cross_entropy(x, embed, targets, n_chunks: int = 8, dp=None,
+                          tp=None):
     """Mean cross entropy without the [B, S, V] logits: S in chunks.
 
     x: [B, S, D] final hidden states; embed: [V, D] (tied head); targets:
     int[B, S]. Each chunk's [B, S/c, V] logits live only inside its
     checkpointed loss, recomputed in the backward pass (``jax.checkpoint``
-    in the reference); the chunks' sums add in order.
+    in the reference); the chunks' sums add in order. A ``DTensor``
+    ``embed`` takes the vocabulary-parallel form (``_vocab_parallel_loss``
+    over the data axes ``dp`` and the model axis ``tp``).
     """
     b, s, d = x.shape
     n_chunks = min(n_chunks, s)
     while s % n_chunks:
         n_chunks -= 1
     c = s // n_chunks
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    if isinstance(embed, DTensor):
+        def loss(xi, ti, e):
+            return _vocab_parallel_loss(xi, ti, e, dp, tp)
+    else:
+        loss = _chunk_loss
+    tot = None
     for i in range(n_chunks):
-        tot = tot + checkpoint(_chunk_loss, x[:, i * c:(i + 1) * c],
-                               targets[:, i * c:(i + 1) * c], embed,
-                               use_reentrant=False)
+        part = checkpoint(loss, x[:, i * c:(i + 1) * c],
+                          targets[:, i * c:(i + 1) * c], embed,
+                          use_reentrant=False)
+        tot = part if tot is None else tot + part
     return tot / (b * s)

@@ -22,20 +22,20 @@ Without a mesh all experts are local. On a ``DeviceMesh`` with the model
 axis a rank is given the whole batch and the full [E, ...] expert weights,
 works on its block of the batch (the data axes split it, as the
 reference's ``shard_map`` does) and its slice of the experts, and returns
-its block of the output. The mesh branch serves the forward pass; it
-raises if asked for a gradient.
+its block of the output; over ``DTensor``s the same body is a
+``local_map`` island. Both carry a gradient.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-import types
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.recsys import _dp_block, top_k
+from repro_torch.models.layers import island, mesh_placements, reduce_over
+from repro_torch.models.recsys import top_k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +114,22 @@ def moe_ffn_local(x_flat, router_w, we_gate, we_in, we_out, *,
     return out.to(x_flat.dtype), r["aux"]
 
 
+def _dp_block(x, mesh, dp_axes):
+    """This rank's block of ``x`` along its first dimension, split over
+    the mesh's axes ``dp_axes`` in their order (row-major), as the
+    reference's ``P(dp_axes)`` splits it."""
+    names = mesh.mesh_dim_names
+    index, size = 0, 1
+    for a in dp_axes:
+        n = mesh.size(names.index(a))
+        index, size = index * n + mesh.get_local_rank(a), size * n
+    if x.shape[0] % size:
+        raise ValueError(f"{x.shape[0]} rows do not split over {size} "
+                         f"data-parallel ranks")
+    per = x.shape[0] // size
+    return x[index * per:(index + 1) * per]
+
+
 def _axis(mesh, name: str) -> tuple:
     """(this rank's index on ``name``, the axis's size, its group)."""
     i = mesh.mesh_dim_names.index(name)
@@ -123,15 +139,22 @@ def _axis(mesh, name: str) -> tuple:
 def make_moe_layer(mesh, dp_axes, tp_axis, cfg: MoEConfig):
     """``moe(x [B, S, D], router_w, we_gate, we_in, we_out) -> (y, aux)``.
 
-    The expert weights are the full [E, ...] tensors. Without a mesh (or
-    on one without ``tp_axis``) the layer runs with every expert local. On
-    a ``DeviceMesh`` a rank takes experts [r·E/tp, (r+1)·E/tp) for its index
+    Without a mesh (or on one without ``tp_axis``) the layer runs with
+    every expert local. On a ``DeviceMesh`` it is the reference's
+    ``shard_map``: a rank takes experts [r·E/tp, (r+1)·E/tp) for its index
     r on ``tp_axis`` and its block of x's batch over the mesh's axes of
     ``dp_axes`` (in their order, as ``P(dp_axes)`` splits it); its partial
-    output is all-reduced (SUM) over the model group and it returns its
-    block [B / dp, S, D]; aux is averaged over the model group, then over
-    each data axis in turn. Forward only: the mesh branch raises under
-    autograd (training over a mesh is ROADMAP queue A 11.6)."""
+    output is summed over the model group and it returns its block [B /
+    dp, S, D]; aux is averaged over the model group, then over each data
+    axis in turn. ``DTensor`` arguments (x batch-sharded, the experts
+    sharded over ``tp_axis``) run it as a ``local_map`` island and give
+    ``DTensor``s; plain tensors are the whole batch and the full [E, ...]
+    experts on every rank, and give the rank's block.
+
+    The island carries a gradient. Its sums have the identity as their
+    backward (``models/layers.py::reduce_over``), so a rank's gradients are
+    its parts: x's summed over the model group, the router's over every
+    rank, an expert's over the data axes give the whole gradient."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if mesh is None or tp_axis not in names:
         def moe_single(x, router_w, we_gate, we_in, we_out):
@@ -149,31 +172,39 @@ def make_moe_layer(mesh, dp_axes, tp_axis, cfg: MoEConfig):
                          f"model ranks")
     n_local = cfg.n_experts // tp
     dp = tuple(a for a in (dp_axes or ()) if a in names)
-    split = types.SimpleNamespace(dp_axes=dp)  # what _dp_block reads
 
-    def moe_sharded(x, router_w, we_gate, we_in, we_out):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, router_w, we_gate, we_in,
-                                          we_out)):
-            raise NotImplementedError(
-                "the mesh branch of the MoE layer carries no gradient: "
-                "training over a mesh is not ported (ROADMAP queue A 11.6)")
+    def body(x, router_w, we_gate, we_in, we_out):
         rank, _, group = _axis(mesh, tp_axis)
         e0 = rank * n_local
-        x = _dp_block(x, mesh, split)
         b, s, d = x.shape
         out, aux = moe_ffn_local(
-            x.reshape(b * s, d), router_w, we_gate[e0:e0 + n_local],
-            we_in[e0:e0 + n_local], we_out[e0:e0 + n_local], cfg=cfg,
+            x.reshape(b * s, d), router_w, we_gate, we_in, we_out, cfg=cfg,
             e_start=e0, n_local=n_local)
-        dist.all_reduce(out, group=group)
-        dist.all_reduce(aux, group=group)
-        aux = aux / tp
+        out = reduce_over(out, [group])
+        aux = reduce_over(aux, [group]) / tp
         for a in dp:
             _, size, g = _axis(mesh, a)
-            dist.all_reduce(aux, group=g)
-            aux = aux / size
+            aux = reduce_over(aux, [g]) / size
         return out.reshape(b, s, d), aux
 
-    return moe_sharded
+    xs = mesh_placements(mesh, (dp or None, None, None))
+    rs = mesh_placements(mesh, (None, None))
+    es = mesh_placements(mesh, (tp_axis, None, None))
+    ins = (xs, rs, es, es, es)
+    grads = (mesh_placements(mesh, (dp or None, None, None),
+                             partial=(tp_axis,)),
+             mesh_placements(mesh, (None, None), partial=names),
+             *(mesh_placements(mesh, (tp_axis, None, None), partial=dp),) * 3)
+    sharded = island(body, mesh, ins, grads,
+                     (xs, mesh_placements(mesh, ())))
 
+    def moe_sharded(x, router_w, we_gate, we_in, we_out):
+        if isinstance(x, DTensor):
+            return sharded(x, router_w, we_gate, we_in, we_out)
+        rank, _, _ = _axis(mesh, tp_axis)
+        e0 = rank * n_local
+        return body(_dp_block(x, mesh, dp), router_w,
+                    we_gate[e0:e0 + n_local], we_in[e0:e0 + n_local],
+                    we_out[e0:e0 + n_local])
+
+    return moe_sharded

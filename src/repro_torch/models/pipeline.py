@@ -31,8 +31,11 @@ layer leaf's is summed over the data group, ``embed``'s and
 the backward pass has run to its end on the rank (so that no rank waits in
 a reduction while a neighbour waits for its cotangent).
 
-A mixture-of-experts config raises ``NotImplementedError``: its mesh
-branch carries no gradient (training over a mesh is ROADMAP queue A 11.6).
+A mixture-of-experts config runs, with no model axis, each stage's
+experts all local on the rank's data block (``make_moe_layer``'s single
+branch), as the reference's layer does inside its ``shard_map``: the
+capacity and the aux loss are each block's, and the aux loss, averaged
+over the data group with the cross entropy, is the last stage's only.
 """
 from __future__ import annotations
 
@@ -249,10 +252,6 @@ def make_pp_loss_fn(cfg: LMConfig, par: Parallelism, pp: PipelineConfig):
     int[n_micro, mb, S+1]}``, the whole batch on every rank (``mb`` is the
     per-microbatch global rows; the data axes split it).
     """
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "a pipeline over a mixture of experts: the MoE mesh branch "
-            "carries no gradient (ROADMAP queue A 11.6)")
     n_stages, n_micro = pp.n_stages, pp.n_micro
     if cfg.n_layers % n_stages:
         raise AssertionError((cfg.n_layers, n_stages))

@@ -10,16 +10,17 @@ on the device its parameters lie on, and the loss's gradient comes from
 
 The multi-card branches take ``par``, a ``Parallelism`` whose mesh (a
 ``DeviceMesh``) has the model axis ``par.tp_axis``. The item table is
-row-sharded over that axis (``param_specs``): a rank holds only its rows,
-as a ``DTensor`` placed by ``checkpoint.reshard_checkpoint`` or as its
-local ``[n_items / shards, d]`` tensor; every other parameter is whole on
-every rank. Where the reference's ``shard_map`` splits an input over the
-data axes, a rank is given the whole input and works on its block of it,
-and it returns its block of the output. A lookup of item rows becomes the
-local hits, zeros elsewhere, summed over the model group (each row lives
-on one rank, so the sum is exact); the table is never gathered. These
-branches serve; training over a mesh is not ported, and the lookup raises
-if asked for a gradient there.
+row-sharded over that axis (``param_specs``); every other parameter is
+whole on every rank. The branches are ``DTensor`` programs with
+``local_map`` islands where the reference has ``shard_map`` (the bulk
+top-k and retrieval), and give ``DTensor``s. A rank may instead call them
+with plain inputs, each whole, and its table as a ``DTensor`` placed by
+``checkpoint.reshard_checkpoint`` or as its local ``[n_items / shards,
+d]`` rows: they are placed as ``DTensor``s (``_placed``), and the rank
+gets its block of each output (its local shard). A
+lookup of item rows becomes the local hits, zeros elsewhere, summed over
+the model group (each row lives on one rank, so the sum is exact); the
+table is never gathered, and the gradient reaches each rank's own rows.
 
 Float32 products go to ``torch.matmul``, which runs them in full float32
 unless the caller enables TF32 (``torch.backends.cuda.matmul.allow_tf32``,
@@ -30,13 +31,20 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.graph.datastructs import resolve_device, take_fill
+from repro_torch.graph.datastructs import host_value, resolve_device, take_fill
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.models.layers import chunked_causal_attention
+from repro_torch.launch.mesh import spec_placements
+from repro_torch.models.layers import (
+    chunked_causal_attention,
+    island,
+    mesh_placements,
+    reduce_over,
+    shard,
+)
 
 #: the weights of one block, in the order ``init_sasrec`` draws them
 BLOCK_MATRICES = ("wq", "wk", "wv", "w1", "w2")
@@ -109,16 +117,48 @@ def _model_mesh(par):
     return mesh
 
 
-def _local(params: dict) -> dict:
-    """The rank's local tensors of a parameter dict that may hold
-    ``DTensor``s."""
-    def one(t):
-        return t.to_local() if isinstance(t, DTensor) else t
+def _placed(params: dict, inputs, mesh, par):
+    """A rank's plain arguments as ``DTensor``s (``gnn._placed``'s way):
+    its local ``item_emb`` rows row-sharded over the model axis, every
+    other parameter and every input (each rank holds the whole) replicated.
+    A ``DTensor`` stays as it is."""
+    tbl_pl = spec_placements(mesh, (par.tp_axis, None))
+    rep = [Replicate()] * mesh.ndim
 
-    out = {k: one(v) for k, v in params.items() if k != "blocks"}
+    def one(t, placements=rep):
+        if isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t, mesh, placements, run_check=False)
+
+    out = {k: one(v, tbl_pl if k == "item_emb" else rep)
+           for k, v in params.items() if k != "blocks"}
     out["blocks"] = [{k: one(v) for k, v in blk.items()}
                      for blk in params["blocks"]]
-    return out
+    return out, tuple(one(x) for x in inputs)
+
+
+def _on_mesh(fn, params, inputs, par):
+    """``fn(params, *inputs)``. When ``par`` has a model mesh and the
+    inputs are plain, a rank's: placed as ``DTensor``s (``_placed``), run
+    under ``implicit_replication()``, and the local shards of the results
+    returned (``_locals``)."""
+    mesh = _model_mesh(par)
+    if mesh is None or any(isinstance(x, DTensor) for x in inputs):
+        return fn(params, *inputs)
+    dev = params["item_emb"].device
+    params, inputs = _placed(
+        params, [torch.as_tensor(x, device=dev) for x in inputs], mesh, par)
+    with implicit_replication():
+        return _locals(fn(params, *inputs))
+
+
+def _locals(out):
+    """The local shards of a ``DTensor`` result or of a tuple of them (a
+    partial sum reduced first)."""
+    if isinstance(out, tuple):
+        return tuple(_locals(t) for t in out)
+    whole = [Replicate() if p.is_partial() else p for p in out.placements]
+    return out.redistribute(placements=whole).to_local()
 
 
 def _shard(mesh, par) -> tuple:
@@ -128,34 +168,28 @@ def _shard(mesh, par) -> tuple:
         mesh.mesh_dim_names.index(par.tp_axis)), mesh.get_group(par.tp_axis))
 
 
-def _dp_block(x, mesh, par):
-    """This rank's block of ``x`` along its first dimension, split over
-    the mesh's data axes in ``par.dp_axes``' order (row-major), as the
-    reference's ``P(dp_axes)`` splits it."""
-    names = mesh.mesh_dim_names
-    index, size = 0, 1
-    for a in par.dp_axes:
-        if a in names:
-            n = mesh.size(names.index(a))
-            index, size = index * n + mesh.get_local_rank(a), size * n
-    if x.shape[0] % size:
-        raise ValueError(f"{x.shape[0]} rows do not split over {size} "
-                         f"data-parallel ranks")
-    per = x.shape[0] // size
-    return x[index * per:(index + 1) * per]
-
-
 def _lookup(tbl: torch.Tensor, ids: torch.Tensor, par) -> torch.Tensor:
     """Rows ``ids`` (int64) of the item table: ``take_fill`` without a
-    mesh. On a mesh ``tbl`` is this rank's rows: the hits it holds, zeros
-    elsewhere, all-reduced (SUM) over the model group; an id outside the
-    whole table reads NaN, as ``take_fill``'s."""
+    mesh. On a mesh ``tbl`` and ``ids`` are ``DTensor``s, the table
+    row-sharded over the model axis, and this is an island whose output is
+    split as ``ids`` is: a rank reads the hits its rows hold, zeros
+    elsewhere, and the rows are summed over the model group
+    (``reduce_over``: the gradient reaches each rank's own rows); an id
+    outside the whole table reads NaN, as ``take_fill``'s."""
     mesh = _model_mesh(par)
     if mesh is None:
         return take_fill(tbl, ids)
-    if torch.is_grad_enabled() and tbl.requires_grad:
-        raise NotImplementedError("training over a mesh is not ported: the "
-                                  "row-sharded lookup carries no gradient")
+    ids_pl = tuple(ids.placements)
+    names = tuple(mesh.mesh_dim_names)
+    tbl_pl = tuple(spec_placements(mesh, (par.tp_axis, None)))
+    grad = tuple(Partial() if names[i] != par.tp_axis and p.is_shard()
+                 else tbl_pl[i] for i, p in enumerate(ids_pl))
+    return island(lambda t, i: _lookup_local(t, i, mesh, par), mesh,
+                  (tbl_pl, ids_pl), (grad, ids_pl), (ids_pl,))(tbl, ids)
+
+
+def _lookup_local(tbl, ids, mesh, par) -> torch.Tensor:
+    """``_lookup`` on this rank's rows ``tbl``."""
     sh, nsh, group = _shard(mesh, par)
     rows = tbl.shape[0]
     v = rows * nsh
@@ -163,7 +197,7 @@ def _lookup(tbl: torch.Tensor, ids: torch.Tensor, par) -> torch.Tensor:
     loc = wrapped - sh * rows
     hit = (loc >= 0) & (loc < rows)
     out = torch.where(hit[..., None], tbl[loc.clamp(0, rows - 1)], 0)
-    dist.all_reduce(out, group=group)
+    out = reduce_over(out, [group])
     inside = (wrapped >= 0) & (wrapped < v)
     return torch.where(inside[..., None], out, float("nan"))
 
@@ -182,12 +216,17 @@ def _ids(params, ids) -> torch.Tensor:
 
 def sasrec_hidden(params, seq, cfg: SASRecConfig, par=None) -> torch.Tensor:
     """seq: int32[B, S] item ids (0 = pad) -> hidden states [B, S, d]. On a
-    mesh: the hidden states of the sequences this rank was given."""
-    if _model_mesh(par) is not None:
-        params = _local(params)
+    mesh: split over the data axes."""
+    return _on_mesh(lambda p, s: _hidden(p, s, cfg, par), params, (seq,),
+                    par)
+
+
+def _hidden(params, seq, cfg: SASRecConfig, par) -> torch.Tensor:
+    dp = par.dp_axes if par is not None else ()
     seq = _ids(params, seq)
     x = _lookup(params["item_emb"], seq.long(), par) * (cfg.d ** 0.5)
     x = x + params["pos_emb"][None, : seq.shape[1]]
+    x = shard(x, (dp or None, None, None))
     pad = (seq == 0)[..., None]
     x = torch.where(pad, 0, x)
     for blk in params["blocks"]:
@@ -200,7 +239,15 @@ def sasrec_hidden(params, seq, cfg: SASRecConfig, par=None) -> torch.Tensor:
         h2 = _ln(x, blk["ln2"])
         x = x + torch.relu(h2 @ blk["w1"]) @ blk["w2"]
         x = torch.where(pad, 0, x)
-    return x
+    return shard(x, (dp or None, None, None))
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a ``DTensor``, which has no sharding rule for
+    it, min(x, 0) - log1p(exp(-|x|)), the same function."""
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    return torch.clamp(x, max=0) - torch.log1p(torch.exp(-x.abs()))
 
 
 def sasrec_train_loss(params, batch, cfg: SASRecConfig,
@@ -208,17 +255,19 @@ def sasrec_train_loss(params, batch, cfg: SASRecConfig,
     """batch = {seq, pos, neg} each int32[B, S]; BCE on the sampled logits,
     averaged over the positions whose positive is not padding (at least
     one)."""
-    if _model_mesh(par) is not None:
-        params = _local(params)
-    h = sasrec_hidden(params, batch["seq"], cfg, par)
-    pos = _ids(params, batch["pos"]).long()
-    pe = _lookup(params["item_emb"], pos, par)
-    ne = _lookup(params["item_emb"], _ids(params, batch["neg"]).long(), par)
-    lp = (h * pe).sum(-1).float()
-    ln_ = (h * ne).sum(-1).float()
-    valid = (pos != 0).float()
-    loss = -(F.logsigmoid(lp) + F.logsigmoid(-ln_)) * valid
-    return loss.sum() / valid.sum().clamp_min(1.0)
+    def loss_of(params, seq, pos, neg):
+        h = _hidden(params, seq, cfg, par)
+        pos = _ids(params, pos).long()
+        pe = _lookup(params["item_emb"], pos, par)
+        ne = _lookup(params["item_emb"], _ids(params, neg).long(), par)
+        lp = (h * pe).sum(-1).float()
+        ln_ = (h * ne).sum(-1).float()
+        valid = (pos != 0).float()
+        loss = -(_logsigmoid(lp) + _logsigmoid(-ln_)) * valid
+        return loss.sum() / valid.sum().clamp_min(1.0)
+
+    return _on_mesh(loss_of, params, (batch["seq"], batch["pos"],
+                                      batch["neg"]), par)
 
 
 def sasrec_user_state(params, seq, cfg: SASRecConfig,
@@ -229,14 +278,16 @@ def sasrec_user_state(params, seq, cfg: SASRecConfig,
 
 def serve_scores(params, seq, cfg: SASRecConfig, par=None) -> torch.Tensor:
     """Online serving (serve_p99): [B, n_items] scores in one product. On a
-    mesh: this rank's block, its data block of the users against its rows
-    of the table ([B / dp, n_items / shards], the reference's
-    ``P(dp, tp)``)."""
-    if _model_mesh(par) is not None:
-        params = _local(params)
-        seq = _dp_block(seq, par.mesh, par)
-    u = sasrec_user_state(params, seq, cfg, par)  # [B, d]
-    return u @ params["item_emb"].T
+    mesh: split as the reference's ``P(dp, tp)`` (a rank's block is its
+    data block of the users against its rows of the table)."""
+    def scores(params, seq):
+        u = _hidden(params, seq, cfg, par)[:, -1]  # [B, d]
+        s = u @ params["item_emb"].T
+        if isinstance(s, DTensor):
+            s = shard(s, (par.dp_axes or None, par.tp_axis))
+        return s
+
+    return _on_mesh(scores, params, (seq,), par)
 
 
 def _order_keys(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -270,7 +321,7 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if n > k:
         split |= vals[:, k] == edge
     pos = pos[:, :k]
-    if bool(split.any()):
+    if host_value(split.any(), if_fake=False):  # a dry run: no ties
         at = split.nonzero()[:, 0]
         every = torch.arange(n, device=x.device)
         pos[at] = torch.topk(_order_keys(rows[at], every), k, dim=-1).indices
@@ -316,40 +367,67 @@ def serve_bulk_topk(params, seq, cfg: SASRecConfig, par=None, k: int = 100,
     not read): a rank runs the chunked top-k of its data block of the
     users over its own rows, the shards' [B / dp, k] survivors meet in one
     all-gather over the model group, and one top-k merges them in shard
-    order. Returns this rank's data block of the result."""
-    mesh = _model_mesh(par)
-    if mesh is not None:
-        params = _local(params)
-        u = sasrec_user_state(params, _dp_block(seq, mesh, par), cfg, par)
-        tbl = params["item_emb"]
-        sh, nsh, group = _shard(mesh, par)
-        rows = tbl.shape[0]
-        ls, li = _chunked_topk(u, tbl, sh * rows, k, n_chunks)
-        parts_s = [torch.empty_like(ls) for _ in range(nsh)]
-        parts_i = [torch.empty_like(li) for _ in range(nsh)]
-        dist.all_gather(parts_s, ls, group=group)
-        dist.all_gather(parts_i, li, group=group)
-        top_s, pos = top_k(torch.cat(parts_s, dim=-1), k)
-        return top_s, torch.gather(torch.cat(parts_i, dim=-1), 1, pos)
+    order (``_bulk_island``). The result is split over the data axes."""
+    if _model_mesh(par) is not None:
+        return _on_mesh(lambda p, s: _bulk_island(p, s, cfg, par, k,
+                                                   n_chunks),
+                        params, (seq,), par)
     u = sasrec_user_state(params, seq, cfg)  # [B, d]
     tbl = params["item_emb"]
     nsh = n_shards or 1
     rows = tbl.shape[0] // nsh
     parts = [_chunked_topk(u, tbl[s * rows:(s + 1) * rows], s * rows, k,
                            n_chunks) for s in range(nsh)]
-    ms = torch.cat([p[0] for p in parts], dim=-1)
-    mi = torch.cat([p[1] for p in parts], dim=-1)
+    return _merge_topk(torch.cat([p[0] for p in parts], dim=-1),
+                       torch.cat([p[1] for p in parts], dim=-1), k)
+
+
+def _shard_topk(u, tbl, mesh, par, k: int, n_chunks: int):
+    """The chunked top-k of users ``u`` over this rank's rows ``tbl`` of
+    the row-sharded table, ids global."""
+    sh = _shard(mesh, par)[0]
+    return _chunked_topk(u, tbl, sh * tbl.shape[0], k, n_chunks)
+
+
+def _merge_topk(ms, mi, k: int):
+    """One top-k over the shards' survivors, in shard order."""
     top_s, pos = top_k(ms, k)
     return top_s, torch.gather(mi, 1, pos)
+
+
+def _bulk_island(params, seq, cfg, par, k: int, n_chunks: int):
+    """``serve_bulk_topk`` over ``DTensor``s, the reference's
+    ``shard_map``: an island runs each rank's chunked top-k of its data
+    block of the users over its rows ([B / dp, 1, k] per rank, [B, shards,
+    k] in all); the survivors are gathered over the model axis and a
+    second island merges each data block's."""
+    mesh = par.mesh
+    dp, tp = par.dp_axes or None, par.tp_axis
+    u = sasrec_user_state(params, seq, cfg, par)  # [B, d]
+    us = mesh_placements(mesh, (dp, None))
+    ts = mesh_placements(mesh, (tp, None))
+    out = mesh_placements(mesh, (dp, tp, None))
+
+    def body(u_l, tbl_l):
+        ls, li = _shard_topk(u_l, tbl_l, mesh, par, k, n_chunks)
+        return ls[:, None, :], li[:, None, :]
+
+    ls, li = island(body, mesh, (us, ts), (us, ts), (out, out))(
+        u, params["item_emb"])
+    b, nsh = ls.shape[:2]
+    ms = shard(ls.reshape(b, nsh * k), (dp, None))
+    mi = shard(li.reshape(b, nsh * k), (dp, None))
+    return island(lambda s_, i_: _merge_topk(s_, i_, k), mesh, (us, us),
+                  (us, us), (us, us))(ms, mi)
 
 
 def _bag_mean(tbl, history, mask, mesh, par) -> torch.Tensor:
     """The mean of each history's rows under ``mask`` over the row-sharded
     table: the embedding-bag kernel's ``sum`` of this rank's hits,
-    all-reduced over the model group, over the mask's count (at least
-    one), as the kernel's ``mean`` divides. An id outside the whole table
-    reads the NaN row once (shard 0's local id ``rows``, outside its
-    rows), as it reaches the reference's bag."""
+    summed over the model group, over the mask's count (at least one), as
+    the kernel's ``mean`` divides. An id outside the whole table reads the
+    NaN row once (shard 0's local id ``rows``, outside its rows), as it
+    reaches the reference's bag."""
     sh, nsh, group = _shard(mesh, par)
     rows = tbl.shape[0]
     v = rows * nsh
@@ -361,8 +439,22 @@ def _bag_mean(tbl, history, mask, mesh, par) -> torch.Tensor:
     idx = torch.where(hit, loc, torch.where(nan_here, rows, 0))
     s = embedding_bag(tbl, idx.to(torch.int32), (mask & hit) | nan_here,
                       mode="sum")
-    dist.all_reduce(s, group=group)
+    s = reduce_over(s, [group])
     return s / mask.sum(1, keepdim=True).clamp_min(1).to(s.dtype)
+
+
+def _candidate_scores(u, tbl, cand, mesh, par) -> torch.Tensor:
+    """Score, then combine: the users ``u`` dotted with the candidates
+    ``cand`` that this rank's rows ``tbl`` hold (zeros elsewhere), the
+    [B, C] scores summed over the model group, not the gathered rows. A
+    candidate id outside the table scores 0, as in the reference's body."""
+    sh = _shard(mesh, par)[0]
+    rows = tbl.shape[0]
+    loc = cand - sh * rows
+    hit = (loc >= 0) & (loc < rows)
+    ce = torch.where(hit[:, None], tbl[loc.clamp(0, rows - 1)], 0.0)
+    s = u.float() @ ce.T.float()  # [B, C]
+    return reduce_over(s, [_shard(mesh, par)[2]])
 
 
 def retrieval_scores(params, history, hist_mask, candidates,
@@ -372,27 +464,34 @@ def retrieval_scores(params, history, hist_mask, candidates,
     (the embedding-bag kernel on the card), dotted with each candidate's
     row: f32[B, C].
 
-    On a mesh: score, then combine. A rank dots the users against the
-    candidates of its data block that its rows hold (zeros elsewhere) and
-    the [B, C / dp] scores are all-reduced over the model group, not the
-    gathered rows; it returns its data block of the columns. As in the
-    reference's body, a candidate id outside the table scores 0 there."""
+    On a mesh: score, then combine (``_candidate_scores``), both steps
+    islands (the reference's ``shard_map``: the history and users
+    replicated, the candidates split over the data axes); the scores are
+    split over the data axes by columns."""
     mesh = _model_mesh(par)
     if mesh is not None:
-        params = _local(params)
+        return _on_mesh(lambda p, h, m, c: _retrieval_islands(
+            p, h, m, c, mesh, par), params, (history, hist_mask, candidates),
+            par)
     tbl = params["item_emb"]
     mask = torch.as_tensor(hist_mask, dtype=torch.bool, device=tbl.device)
-    if mesh is None:
-        u = embedding_bag(tbl, _ids(params, history), mask, mode="mean")
-        ce = take_fill(tbl, _ids(params, candidates).long())  # [C, d]
-        return u.float() @ ce.T.float()
-    u = _bag_mean(tbl, _ids(params, history), mask, mesh, par)
-    sh, _, group = _shard(mesh, par)
-    rows = tbl.shape[0]
-    cand = _dp_block(_ids(params, candidates).long(), mesh, par)
-    loc = cand - sh * rows
-    hit = (loc >= 0) & (loc < rows)
-    ce = torch.where(hit[:, None], tbl[loc.clamp(0, rows - 1)], 0.0)
-    s = u.float() @ ce.T.float()  # [B, C / dp]
-    dist.all_reduce(s, group=group)  # combine scores, not embeddings
-    return s
+    u = embedding_bag(tbl, _ids(params, history), mask, mode="mean")
+    ce = take_fill(tbl, _ids(params, candidates).long())  # [C, d]
+    return u.float() @ ce.T.float()
+
+
+def _retrieval_islands(params, history, hist_mask, candidates, mesh, par):
+    """``retrieval_scores`` over ``DTensor``s: the users' bag means
+    (``_bag_mean``), then their scores against the candidates
+    (``_candidate_scores``), each an island."""
+    tp, dp = par.tp_axis, par.dp_axes or None
+    rep = mesh_placements(mesh, (None, None))
+    ts = mesh_placements(mesh, (tp, None))
+    cs = mesh_placements(mesh, (dp,))
+    tbl = params["item_emb"]
+    u = island(lambda t, h, m: _bag_mean(t, h.to(torch.int32), m, mesh, par),
+               mesh, (ts, rep, rep), (ts, rep, rep), (rep,))(
+        tbl, history, hist_mask.bool())
+    return island(lambda u_, t, c: _candidate_scores(
+        u_, t, c.long(), mesh, par), mesh, (rep, ts, cs), (rep, ts, cs),
+        (mesh_placements(mesh, (None, dp)),))(u, tbl, candidates)

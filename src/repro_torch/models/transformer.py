@@ -11,9 +11,14 @@ scans over the stacked layers, the port loops over them. Every function
 runs on the device its parameters lie on; ``init_params`` and
 ``init_cache`` put them on the card unless given ``device="cpu"``.
 
-The reference's ``shard`` calls (``with_sharding_constraint``) are the
-identity in the port (``models/layers.py::shard``) and are left out. A
-config with ``moe`` replaces each layer's MLP by ``models/moe.py``'s layer
+Over a mesh the parameters are ``DTensor``s placed by ``param_specs``:
+the reference's ``shard`` calls (``with_sharding_constraint``) stand where
+it has them (``models/layers.py::shard`` redistributes a ``DTensor``), and
+``local_map`` islands split what GSPMD splits and ``DTensor`` cannot: the
+attention by batch and q heads, the k/v projection by positions, decode
+against the sequence-sharded cache, the vocabulary-parallel cross
+entropy. On plain tensors all of this is the identity. A config with
+``moe`` replaces each layer's MLP by ``models/moe.py``'s layer
 (its experts ``we_gate``, ``we_in``, ``we_out`` and its ``router`` in the
 layer stack); the layers' aux load-balance losses, summed in float32, come
 out of ``forward`` and into ``lm_loss``.
@@ -31,15 +36,22 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.graph.datastructs import resolve_device, take_fill
+from repro_torch.graph.datastructs import host_value, resolve_device, take_fill
 from repro_torch.models.layers import (
+    axis_part,
     chunked_causal_attention,
     chunked_cross_entropy,
     decode_attention,
+    island,
+    mesh_placements,
     rms_norm,
     rope,
+    shard,
+    sharded_causal_attention,
+    sharded_decode_attention,
 )
 from repro_torch.models.moe import MoEConfig, make_moe_layer
 
@@ -226,6 +238,32 @@ def param_specs(cfg: LMConfig, par: Parallelism) -> dict:
 
 
 # -------------------------------------------------------------------- forward
+def _sequence_split_kv(hn, wk, wv, dp, tp):
+    """k and v of ``hn`` [B, S, D] over a mesh: an island where a rank
+    projects its batch block's block of positions on the model axis, so
+    that the replicated k and v weights cost each rank 1/tp of the
+    product (as GSPMD splits it) and the results come out
+    sequence-sharded over ``tp``."""
+    mesh = hn.device_mesh
+    hs = mesh_placements(mesh, (dp, None, None))
+    ws = mesh_placements(mesh, (None, None, None))
+    names = tuple(mesh.mesh_dim_names)
+    every = tuple(a for a in names if a in (dp or ()) or a == tp)
+    grads = (mesh_placements(mesh, (dp, None, None), partial=(tp,)),
+             mesh_placements(mesh, (None, None, None), partial=every),
+             mesh_placements(mesh, (None, None, None), partial=every))
+    out = mesh_placements(mesh, (dp, tp, None, None))
+
+    def body(h, wk_l, wv_l):
+        r, n, _ = axis_part(mesh, tp)
+        rows = h.shape[1] // n
+        h = h[:, r * rows:(r + 1) * rows]
+        return (torch.einsum("bsd,dhk->bshk", h, wk_l),
+                torch.einsum("bsd,dhk->bshk", h, wv_l))
+
+    return island(body, mesh, (hs, ws, ws), grads, (out, out))(hn, wk, wv)
+
+
 def _attention_block(x, lp, cfg: LMConfig, par: Parallelism, positions,
                      cache=None, valid_len=None, return_kv=False,
                      differentiable=True):
@@ -239,10 +277,17 @@ def _attention_block(x, lp, cfg: LMConfig, par: Parallelism, positions,
     s = x.shape[1]
     hmask = cfg.head_mask(x.device)
 
+    dp, tp = par.dp_axes or None, par.tp_axis
     hn = rms_norm(x, lp["attn_norm"])
-    q = torch.einsum("bsd,dhk->bshk", hn, lp["wq"])
-    k = torch.einsum("bsd,dhk->bshk", hn, lp["wk"])
-    v = torch.einsum("bsd,dhk->bshk", hn, lp["wv"])
+    # q born head-sharded; k and v replicated over the heads (head-major
+    # weights), over a mesh computed by positions and gathered
+    q = shard(torch.einsum("bsd,dhk->bshk", hn, lp["wq"]),
+              (dp, None, tp, None))
+    if isinstance(hn, DTensor) and cache is None:
+        k, v = _sequence_split_kv(hn, lp["wk"], lp["wv"], dp, tp)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", hn, lp["wk"])
+        v = torch.einsum("bsd,dhk->bshk", hn, lp["wv"])
     if hmask is not None:
         # zero the padded q lanes so they are dead in forward and backward
         q = q * hmask[None, None, :, None].to(q.dtype)
@@ -253,9 +298,11 @@ def _attention_block(x, lp, cfg: LMConfig, par: Parallelism, positions,
 
     new_cache = None
     if cache is None:
-        o = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk,
-                                     unroll=cfg.scan_unroll,
-                                     differentiable=differentiable)
+        kw = dict(chunk=cfg.attn_chunk, unroll=cfg.scan_unroll,
+                  differentiable=differentiable)
+        o = (sharded_causal_attention(q, k, v, dp, tp, **kw)
+             if isinstance(q, DTensor) else
+             chunked_causal_attention(q, k, v, **kw))
         if return_kv:
             new_cache = (k, v)
     else:
@@ -263,14 +310,21 @@ def _attention_block(x, lp, cfg: LMConfig, par: Parallelism, positions,
         smax = ck.shape[1]
         pos0 = valid_len - s
         pos0 = min(max(pos0 + smax if pos0 < 0 else pos0, 0), smax - s)
-        ck[:, pos0:pos0 + s] = k
-        cv[:, pos0:pos0 + s] = v
-        o = decode_attention(q, ck, cv, valid_len)
+        if isinstance(ck, DTensor):
+            o = sharded_decode_attention(q, k, v, ck, cv, pos0, valid_len,
+                                         dp, tp)
+        else:
+            ck[:, pos0:pos0 + s] = k
+            cv[:, pos0:pos0 + s] = v
+            o = decode_attention(q, ck, cv, valid_len)
         new_cache = (ck, cv)
+    o = shard(o, (dp, None, tp, None))  # [B, S, H, dh] head-sharded
     if hmask is not None:
         # padded lanes see a uniform softmax; mask them before wo
         o = o * hmask[None, None, :, None].to(o.dtype)
-    return torch.einsum("bshk,hkd->bsd", o, lp["wo"]), new_cache
+    # the contraction over (head, dh) is local per shard: one reduction
+    out = torch.einsum("bshk,hkd->bsd", o, lp["wo"])
+    return shard(out, (dp, None, None)), new_cache
 
 
 def _make_layer_fn(cfg: LMConfig, par: Parallelism, decode: bool,
@@ -280,6 +334,7 @@ def _make_layer_fn(cfg: LMConfig, par: Parallelism, decode: bool,
     loss, or None for a dense MLP)."""
     moe_layer = (make_moe_layer(par.mesh, par.dp_axes, par.tp_axis, cfg.moe)
                  if cfg.moe else None)
+    dp, tp = par.dp_axes or None, par.tp_axis
 
     def layer(x, positions, lp, cache=None, valid_len=None):
         if decode:
@@ -295,9 +350,10 @@ def _make_layer_fn(cfg: LMConfig, par: Parallelism, decode: bool,
             ffn_out, aux = moe_layer(hn, lp["router"], lp["we_gate"],
                                      lp["we_in"], lp["we_out"])
         else:
-            hmid = F.silu(hn @ lp["w_gate"]) * (hn @ lp["w_in"])
+            hmid = shard(F.silu(hn @ lp["w_gate"]) * (hn @ lp["w_in"]),
+                         (dp, None, tp))
             ffn_out, aux = hmid @ lp["w_out"], None
-        return x + ffn_out, kv, aux
+        return shard(x + ffn_out, (dp, None, None)), kv, aux
 
     return layer
 
@@ -315,11 +371,12 @@ def token_ids(tokens, device) -> torch.Tensor:
     return tokens.to(device=device, dtype=torch.int32)
 
 
-def _embed(params, tokens) -> torch.Tensor:
+def _embed(params, tokens, par: Parallelism) -> torch.Tensor:
     """Token rows of the embedding, ``jnp.take``'s fill mode: an id outside
-    ``[-V, V)`` gives a NaN row."""
+    ``[-V, V)`` gives a NaN row; batch-sharded over the data axes."""
     table = params["embed"]
-    return take_fill(table, token_ids(tokens, table.device))
+    x = take_fill(table, token_ids(tokens, table.device))
+    return shard(x, (par.dp_axes or None, None, None))
 
 
 def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
@@ -331,7 +388,8 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 def _run_layers(params, x, positions, layer, cfg: LMConfig, kv_out=None):
     """(x through every layer in order, the layers' aux losses summed in
     float32 from zero, in layer order); with ``kv_out`` (a pair of [L, B,
-    S, KV, dh] tensors) each layer's (k, v) written into it. Under autograd
+    S, KV, dh] tensors, or of two lists) each layer's (k, v) written into
+    it (or appended to them). Under autograd
     with ``cfg.remat`` each layer is checkpointed (``jax.checkpoint``)."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -344,7 +402,10 @@ def _run_layers(params, x, positions, layer, cfg: LMConfig, kv_out=None):
             x, kv, aux_l = layer(x, positions, lp)
         if aux_l is not None:
             aux = aux + aux_l
-        if kv_out is not None:
+        if isinstance(kv_out, tuple) and isinstance(kv_out[0], list):
+            kv_out[0].append(kv[0])
+            kv_out[1].append(kv[1])
+        elif kv_out is not None:
             kv_out[0][i] = kv[0]
             kv_out[1][i] = kv[1]
     return x, aux
@@ -353,7 +414,7 @@ def _run_layers(params, x, positions, layer, cfg: LMConfig, kv_out=None):
 def forward(params, tokens, cfg: LMConfig, par: Parallelism):
     """tokens: int[B, S] -> (final hidden [B, S, D], the layers' summed
     float32 aux loss: zero for a dense config)."""
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, par)
     positions = _positions(*x.shape[:2], 0, x.device)
     x, aux = _run_layers(params, x, positions,
                          _make_layer_fn(cfg, par, decode=False), cfg)
@@ -365,14 +426,20 @@ def forward_with_kv(params, tokens, cfg: LMConfig, par: Parallelism):
     ([L, B, S, KV, dh] x2, in the parameters' dtype). Inference only: the
     block triangle of the attention takes its non-differentiable branch.
     The aux loss is dropped, as in the reference."""
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, par)
     b, s = x.shape[:2]
     positions = _positions(b, s, 0, x.device)
+    layer = _make_layer_fn(cfg, par, decode=False, return_kv=True,
+                           differentiable=False)
+    if isinstance(x, DTensor):
+        # over a mesh the layers' (k, v), sequence-sharded, are stacked
+        kv = ([], [])
+        x, _ = _run_layers(params, x, positions, layer, cfg, kv_out=kv)
+        return rms_norm(x, params["final_norm"]), (torch.stack(kv[0]),
+                                                   torch.stack(kv[1]))
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
     kv = (torch.empty(shape, dtype=x.dtype, device=x.device),
           torch.empty(shape, dtype=x.dtype, device=x.device))
-    layer = _make_layer_fn(cfg, par, decode=False, return_kv=True,
-                           differentiable=False)
     x, _ = _run_layers(params, x, positions, layer, cfg, kv_out=kv)
     return rms_norm(x, params["final_norm"]), kv
 
@@ -383,7 +450,8 @@ def lm_loss(params, batch, cfg: LMConfig, par: Parallelism,
     tokens = token_ids(batch["tokens"], params["embed"].device)
     x, aux = forward(params, tokens[:, :-1], cfg, par)
     targets = tokens[:, 1:]
-    ce = chunked_cross_entropy(x, params["embed"], targets, cfg.loss_chunks)
+    ce = chunked_cross_entropy(x, params["embed"], targets, cfg.loss_chunks,
+                               par.dp_axes or None, par.tp_axis)
     return ce + aux_weight * aux / max(cfg.n_layers, 1)
 
 
@@ -427,14 +495,16 @@ def decode_step(params, cache, tokens, valid_len, cfg: LMConfig,
     tens of GB. A mixture of experts' aux loss is dropped, as in the
     reference.
     """
-    valid_len = int(valid_len)
-    x = _embed(params, tokens)
+    ck, cv = cache
+    # a dry run's fake length: the step that fills the cache
+    valid_len = int(host_value(valid_len, if_fake=ck.shape[2]))
+    x = _embed(params, tokens, par)
     b, s = x.shape[:2]
     positions = _positions(b, s, valid_len - s, x.device)
     layer = _make_layer_fn(cfg, par, decode=True)
-    ck, cv = cache
     for i in range(cfg.n_layers):
         x, _, _ = layer(x, positions, _layer_params(params, i),
                         cache=(ck[i], cv[i]), valid_len=valid_len)
     x = rms_norm(x, params["final_norm"])
-    return last_logits(params, x), (ck, cv)
+    logits = shard(last_logits(params, x), (par.dp_axes or None, None))
+    return logits, (ck, cv)

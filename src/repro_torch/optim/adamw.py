@@ -11,12 +11,18 @@ every leaf, untouched table rows included, decays and moves each step.
 A partition spec here is a tuple with one entry per dimension: ``None``,
 a mesh axis name or a tuple of names (``jax.sharding.PartitionSpec``'s
 entries, so ``tuple(P("data", None)) == ("data", None)``).
+
+Leaves may be ``DTensor``s: each gradient is first redistributed to its
+moments' placements (a partial one reduced: with the state placed by
+``zero1_specs``, a reduce-scatter), the update runs there, and each new
+param is redistributed back to the param's placements.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -43,10 +49,10 @@ def adamw_init(params) -> dict:
                        device=tree_leaves(params)[0].device)
     return {"step": step,
             "master": tree_map(lambda p: p.detach().float().clone(), params),
-            "m": tree_map(lambda p: torch.zeros(p.shape, device=p.device),
-                          params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, device=p.device),
-                          params)}
+            "m": tree_map(lambda p: torch.zeros_like(
+                p.detach(), dtype=torch.float32), params),
+            "v": tree_map(lambda p: torch.zeros_like(
+                p.detach(), dtype=torch.float32), params)}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -74,7 +80,10 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
     The update is elementwise, so the bits are the pure update's; the
     memory is one copy of the state and a few chunks of temporaries,
     instead of two copies and a leaf's temporaries (a 3.1 G-parameter
-    state is 37 GB, one expert leaf's temporaries about 25 GB)."""
+    state is 37 GB, one expert leaf's temporaries about 25 GB). A
+    ``DTensor`` leaf runs the same chunks on its local shards; a param
+    placed otherwise than its state (ZeRO-1) is then written once from
+    its new master, redistributed to the param's placements."""
     step = state["step"] + 1
     gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / gn.clamp_min(1e-9), max=1.0)
@@ -84,7 +93,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
     lr = cfg.lr * lr_scale
 
-    def upd(g, m, v, mw):
+    def upd(g, m, v, mw, clip=clip, b1c=b1c, b2c=b2c, lr=lr):
         g = g.float() * clip
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
@@ -94,18 +103,34 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
                         + cfg.weight_decay * mw)
         return m, v, mw
 
-    leaves = zip(*(tree_leaves(t) for t in (grads, state["m"], state["v"],
-                                            state["master"])))
+    g_leaves = [g.redistribute(placements=m.placements)
+                if isinstance(g, DTensor) else g
+                for g, m in zip(tree_leaves(grads), tree_leaves(state["m"]))]
+    leaves = zip(g_leaves, *(tree_leaves(state[k])
+                             for k in ("m", "v", "master")))
     if donate:
+        # each leaf's local shards (a DTensor's gradient now lies as its
+        # state does), the state written in place a chunk at a time
+        scalars = [x.full_tensor() if isinstance(x, DTensor) else x
+                   for x in (clip, b1c, b2c, lr)]
         for (g, *old), p in zip(leaves, tree_leaves(params)):
-            g, p = g.reshape(-1), p.view(-1)
-            old = [t.view(-1) for t in old]
+            # a param placed as its state is takes its chunks too; one
+            # placed otherwise (ZeRO-1) is written once, from the new master
+            # in its placements
+            same = not isinstance(p, DTensor) or (
+                p.placements == old[2].placements)
+            g, p_l = _local(g).reshape(-1), _local(p).view(-1)
+            old_l = [_local(t).view(-1) for t in old]
             for at in range(0, g.numel(), DONATED_CHUNK):
                 part = slice(at, at + DONATED_CHUNK)
-                new = upd(g[part], *(t[part] for t in old))
-                for dst, val in zip(old, new):
+                new = upd(g[part], *(t[part] for t in old_l), *scalars)
+                for dst, val in zip(old_l, new):
                     dst[part].copy_(val)
-                p[part].copy_(new[2])
+                if same:
+                    p_l[part].copy_(new[2])
+            if not same:
+                p_l.copy_(_local(_placed_like(old[2].to(p.dtype), p))
+                          .view(-1))
         new_params = params
         new_state = {"step": step, "master": state["master"],
                      "m": state["m"], "v": state["v"]}
@@ -113,10 +138,24 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
         out = [upd(*leaf) for leaf in leaves]
         m, v, mw = (tree_unflatten(params, [o[i] for o in out])
                     for i in range(3))
-        new_params = tree_map(lambda w, p: w.to(p.dtype), mw, params)
+        new_params = tree_map(lambda w, p: _placed_like(w.to(p.dtype), p),
+                              mw, params)
         new_state = {"step": step, "master": mw, "m": m, "v": v}
     lr = torch.as_tensor(lr, dtype=torch.float32, device=gn.device)
     return new_params, new_state, {"grad_norm": gn, "lr": lr}
+
+
+def _local(x):
+    """A ``DTensor``'s local shard; any other tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _placed_like(x, like):
+    """``x`` in ``like``'s placements when both are ``DTensor``s (a new
+    param, computed in its state's placements, back in the param's)."""
+    if isinstance(x, DTensor) and isinstance(like, DTensor):
+        return x.redistribute(placements=like.placements)
+    return x
 
 
 def _is_spec(x) -> bool:

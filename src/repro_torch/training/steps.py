@@ -5,13 +5,22 @@ Every builder returns functions of (params, opt_state, batch), pure
 unless built with ``donate``, so a checkpoint of ``{"params", "opt"}`` is
 the whole training state. The gradient comes from ``torch.autograd.grad``
 over the param leaves; the step runs on the device its params lie on.
+Params that are ``DTensor``s (placed by their specs on a ``DeviceMesh``)
+train over the mesh: the gradient of a replicated leaf arrives partial
+over the data axes and the AdamW update reduces it into the state's
+placements (ZeRO-1 where the state is placed by ``zero1_specs``), as
+GSPMD does.
 The language model's train, prefill and decode steps, the graph networks'
 train step in its three modes, and SASRec's steps are here.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
@@ -31,20 +40,34 @@ def _train_step(loss_fn, opt_cfg: AdamWConfig, total_steps: int,
     def step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = loss_fn(tree_unflatten(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        lr_scale = cosine_schedule(opt_state["step"], warmup=warmup,
-                                   total=total_steps)
-        with torch.no_grad():
-            params, opt_state, metrics = adamw_update(
-                tree_unflatten(params, grads), opt_state, params, opt_cfg,
-                lr_scale, donate=donate)
+        with over_mesh(leaves):
+            with torch.enable_grad():
+                loss = loss_fn(tree_unflatten(params, leaves), batch)
+                if isinstance(loss, DTensor):  # seed a whole, not a part
+                    loss = loss.redistribute(
+                        placements=[Replicate()] * loss.device_mesh.ndim)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            lr_scale = cosine_schedule(opt_state["step"], warmup=warmup,
+                                       total=total_steps)
+            with torch.no_grad():
+                params, opt_state, metrics = adamw_update(
+                    tree_unflatten(params, grads), opt_state, params,
+                    opt_cfg, lr_scale, donate=donate)
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
 
     return step
+
+
+def over_mesh(tree):
+    """``implicit_replication()`` when ``tree`` holds a ``DTensor`` (a
+    plain tensor the step makes, a position grid or a mask, then counts as
+    replicated on the mesh, as a constant does under GSPMD), else
+    nothing."""
+    if any(isinstance(t, DTensor) for t in tree_leaves(tree)):
+        return implicit_replication()
+    return nullcontext()
 
 
 # ------------------------------------------------------------------------- LM
@@ -75,14 +98,15 @@ def make_lm_prefill_step(cfg: tfm.LMConfig, par: tfm.Parallelism,
 
     @torch.no_grad()
     def prefill(params, tokens):
-        s = tokens.shape[1]
-        x, (ck, cv) = tfm.forward_with_kv(params, tokens, cfg, par)
-        logits = tfm.last_logits(params, x)
-        pad = s_max - s
-        if pad > 0:
-            ck = F.pad(ck, (0, 0, 0, 0, 0, pad))
-            cv = F.pad(cv, (0, 0, 0, 0, 0, pad))
-        return logits, (ck, cv)
+        with over_mesh(params):
+            s = tokens.shape[1]
+            x, (ck, cv) = tfm.forward_with_kv(params, tokens, cfg, par)
+            logits = tfm.last_logits(params, x)
+            pad = s_max - s
+            if pad > 0:
+                ck = F.pad(ck, (0, 0, 0, 0, 0, pad))
+                cv = F.pad(cv, (0, 0, 0, 0, 0, pad))
+            return logits, (ck, cv)
 
     return prefill
 
@@ -94,7 +118,9 @@ def make_lm_decode_step(cfg: tfm.LMConfig, par: tfm.Parallelism):
 
     @torch.no_grad()
     def decode(params, cache, tokens, valid_len):
-        return tfm.decode_step(params, cache, tokens, valid_len, cfg, par)
+        with over_mesh(params):
+            return tfm.decode_step(params, cache, tokens, valid_len, cfg,
+                                   par)
 
     return decode
 

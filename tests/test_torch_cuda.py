@@ -1832,3 +1832,105 @@ def test_one_rank_pipeline_on_card_is_lm_loss(nccl_pipe):
     np.testing.assert_allclose(got, want, rtol=1e-6)
     for a, b in zip(g_pp, g_ref):
         _lm_close(a.reshape(b.shape), b.cpu(), 1e-5)
+
+
+def test_dryrun_cell_on_card(cuda, tmp_path):
+    """``run_cell`` with fake tensors on the card's device type (SASRec's
+    ``retrieval_cand``: the fake ``embedding_bag``) on the single mesh of
+    256 fake ranks: status ok, no kernel launched, and the same record as
+    with fake tensors on the CPU."""
+    from repro_torch.launch.dryrun import run_cell
+
+    reset_launch_counts()
+    got = run_cell("sasrec", "retrieval_cand", "single", tmp_path / "cuda",
+                   force=True, device="cuda")
+    assert got["status"] == "ok", got.get("error")
+    assert not any(launch_counts().values())
+    want = run_cell("sasrec", "retrieval_cand", "single", tmp_path / "cpu",
+                    force=True, device="cpu")
+    for key in ("analysis", "memory", "collectives", "roofline"):
+        assert got[key] == want[key], key
+
+
+def test_fake_embedding_bag_gives_kernel_shapes(cuda):
+    """A fake card table gets the shape-only result: the kernel's shape
+    and dtype on real inputs of the same shapes, and no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    table = torch.randn(1000, 50, device="cuda")
+    idx = torch.randint(0, 1000, (3, 7), dtype=torch.int32, device="cuda")
+    mask = torch.rand(3, 7, device="cuda") < 0.5
+    want = embedding_bag(table, idx, mask, mode="mean")
+    reset_launch_counts()
+    with FakeTensorMode() as mode:
+        got = embedding_bag(mode.from_tensor(table), mode.from_tensor(idx),
+                            mode.from_tensor(mask), mode="mean")
+    assert not any(launch_counts().values())
+    assert (got.shape, got.dtype, got.device) == (want.shape, want.dtype,
+                                                  want.device)
+
+
+def test_one_rank_dtensor_train_step_on_card(nccl_grid):
+    """One ``make_lm_train_step`` step over ``DTensor`` params placed by
+    ``param_specs`` (and an AdamW state by ``zero1_specs``) on a one-rank
+    NCCL (data, model) mesh, against the same step on plain tensors, in
+    float32 on the card: the loss and grad_norm within 1e-5 relative,
+    every new param and moment within 1e-5 of its scale; the donated step
+    from the same inputs equal to it bit for bit."""
+    import dataclasses
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import spec_placements
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import zero1_specs
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.training import make_lm_train_step
+
+    cfg = dataclasses.replace(get("qwen3_0_6b").smoke_config,
+                              param_dtype="float32")
+    par = Parallelism(mesh=nccl_grid, dp_axes=("data",), tp_axis="model")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (4, 17), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    pspecs = tfm.param_specs(cfg, par)
+
+    def place(tree, specs):
+        return tree_map(lambda t, s: distribute_tensor(
+            t, nccl_grid, spec_placements(nccl_grid, s), src_data_rank=None),
+            tree, specs)
+
+    opt = adamw_init(params)
+    dopt = {"step": opt["step"],
+            **{k: place(opt[k], zero1_specs(pspecs, "data", params,
+                                            dp_size=1)[k])
+               for k in ("master", "m", "v")}}
+    dtok = distribute_tensor(tokens, nccl_grid, spec_placements(
+        nccl_grid, (("data",), None)), src_data_rank=None)
+    step = make_lm_train_step(cfg, par, total_steps=20, warmup=2)
+    plain_step = make_lm_train_step(cfg, Parallelism.none(), total_steps=20,
+                                    warmup=2)
+    got_p, got_o, got = step(place(params, pspecs), dopt, {"tokens": dtok})
+    want_p, want_o, want = plain_step(params, opt, {"tokens": tokens})
+    for key in ("loss", "grad_norm"):
+        g = got[key].full_tensor() if hasattr(got[key], "full_tensor") \
+            else got[key]
+        np.testing.assert_allclose(g.item(), want[key].item(), rtol=1e-5)
+    for a, b in zip(tree_leaves(got_p) + tree_leaves(got_o["m"]),
+                    tree_leaves(want_p) + tree_leaves(want_o["m"])):
+        _lm_close(a.full_tensor(), b.cpu(), 1e-5)
+    # the donated step from copies of the same inputs writes the pure
+    # step's bits into every param, master, m and v leaf
+    donated = make_lm_train_step(cfg, par, total_steps=20, warmup=2,
+                                 donate=True)
+    d_p, d_o, _ = donated(place(params, pspecs), tree_map(torch.clone, dopt),
+                          {"tokens": dtok})
+    keys = ("master", "m", "v")
+    for a, b in zip(tree_leaves(d_p) + tree_leaves([d_o[k] for k in keys]),
+                    tree_leaves(got_p) + tree_leaves([got_o[k]
+                                                      for k in keys])):
+        assert torch.equal(a.to_local(), b.to_local())

@@ -17,8 +17,9 @@ gradient leaf of every stage within 1e-5 of that block's largest
 magnitude; the step's loss, grad_norm and lr within 1e-5 relative, every
 param, master, m and v block within 1e-5 of its largest magnitude (the two
 libraries sum in other orders). In one process: ``stageify_params``'
-shapes, the ``L % S`` assertion, a mixture-of-experts config refused, and
-one stage without a mesh against ``lm_loss``.
+shapes and the ``L % S`` assertion, and one stage without a mesh against
+``lm_loss``. The same pipeline over a mixture of experts: its loss and
+gradient against JAX's at the same tolerances.
 """
 import os
 import subprocess
@@ -34,12 +35,12 @@ torch = pytest.importorskip("torch")
 import jax
 
 import torch_pipeline_world as world_mod
+from repro.models import moe as j_moe
 from repro.models import pipeline as j_pipe
 from repro.models import transformer as j_tfm
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.models import pipeline as t_pipe
 from repro_torch.models import transformer as t_tfm
-from repro_torch.models.moe import MoEConfig
 from repro_torch.optim.tree import tree_leaves, tree_unflatten
 
 from helpers import requires_modern_sharding
@@ -112,6 +113,89 @@ res = {{"loss": np.asarray(loss), "ref": np.asarray(ref),
         **{{f"step/{{k}}": np.asarray(v) for k, v in metrics.items()}}}}
 for k in ("master", "m", "v"):
     res.update(flat(new_opt[k], f"step/opt/{{k}}"))
+
+np.savez(out, **res)
+"""
+
+
+_JAX_MOE_PROGRAM = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from repro.models import transformer as tfm
+from repro.models.pipeline import stageify_params
+from repro.models.transformer import Parallelism
+
+inputs, out = sys.argv[1:3]
+z = dict(np.load(inputs))
+cfg = tfm.LMConfig(**{cfg!r})
+
+
+def tree(prefix):
+    t = {{"layers": {{}}}}
+    for k, v in z.items():
+        if k.startswith(prefix + "/"):
+            name = k[len(prefix) + 1:]
+            if name.startswith("layers/"):
+                t["layers"][name[7:]] = jnp.asarray(v)
+            else:
+                t[name] = jnp.asarray(v)
+    return t
+
+
+def flat(t, prefix):
+    o = {{f"{{prefix}}/{{k}}": np.asarray(v) for k, v in t.items()
+          if k != "layers"}}
+    o.update({{f"{{prefix}}/layers/{{k}}": np.asarray(v)
+               for k, v in t["layers"].items()}})
+    return o
+
+
+tokens = jnp.asarray(z["tokens"])
+par0 = Parallelism.none()
+res = {{}}
+
+# The pipeline over a mixture of experts, which the reference's shard_map
+# cannot nest: its semantics built from the reference's layer. Each data
+# block of each microbatch runs every layer with all experts local, its
+# cross entropy plus 0.01 * (the last stage's layers' aux) / L; the loss
+# is the mean over the blocks and the microbatches.
+from repro.models.layers import rms_norm
+from repro.models.moe import MoEConfig
+mcfg = tfm.LMConfig(**{cfg!r}, moe=MoEConfig(**{moe!r}))
+layer = tfm._make_layer_fn(mcfg, par0, decode=False)
+per_stage = mcfg.n_layers // 4
+
+
+def moe_loss(staged, tokens):
+    flat_layers = {{k: v.reshape(-1, *v.shape[2:])
+                    for k, v in staged["layers"].items()}}
+    nm, mb = tokens.shape[:2]
+    rows = mb // 2
+
+    def block(t):
+        x = jnp.take(staged["embed"], t[:, :-1], axis=0)
+        pos = jnp.broadcast_to(jnp.arange(t.shape[1] - 1), x.shape[:2])
+        aux_last = 0.0
+        for i in range(mcfg.n_layers):
+            lp = {{k: v[i] for k, v in flat_layers.items()}}
+            (x, _, aux), _ = layer((x, pos, jnp.zeros(())), lp)
+            if i >= mcfg.n_layers - per_stage:
+                aux_last = aux_last + aux
+        h = rms_norm(x, staged["final_norm"])
+        ce = tfm.chunked_cross_entropy(h, staged["embed"], t[:, 1:],
+                                       mcfg.loss_chunks)
+        return ce + 0.01 * aux_last / mcfg.n_layers
+
+    blocks = tokens.reshape(nm * 2, rows, tokens.shape[2])
+    return jnp.mean(jax.vmap(block)(blocks))
+
+
+mstaged = stageify_params(tree("moe/params"), 4)
+mloss, mgrads = jax.jit(jax.value_and_grad(moe_loss))(mstaged, tokens)
+res["moe/loss"] = np.asarray(mloss)
+res.update(flat(mgrads, "moe/grads"))
 np.savez(out, **res)
 """
 
@@ -138,6 +222,10 @@ def _inputs(path: Path) -> None:
                                    f"opt/{key_}"))
     data.update({k.replace("opt/m/", "opt/v/"): (v * v + 1e-6).astype(
         np.float32) for k, v in data.items() if k.startswith("opt/m/")})
+    mcfg = j_tfm.LMConfig(**world_mod.CFG, moe=j_moe.MoEConfig(**world_mod.MOE))
+    data.update(world_mod.flat(jax.tree.map(
+        np.asarray, j_tfm.init_params(mcfg, jax.random.PRNGKey(1))),
+        "moe/params"))
     np.savez(path, **data)
 
 
@@ -150,9 +238,15 @@ def run(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     code = textwrap.dedent(_JAX_PROGRAM.format(
-        cfg=world_mod.CFG, lr=world_mod.LR, schedule=world_mod.SCHEDULE))
+        cfg=world_mod.CFG, lr=world_mod.LR, schedule=world_mod.SCHEDULE,
+        moe=world_mod.MOE))
     jax_proc = subprocess.Popen(
         [sys.executable, "-c", code, str(inputs), str(out / "jax.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    moe_code = textwrap.dedent(_JAX_MOE_PROGRAM.format(
+        cfg=world_mod.CFG, moe=world_mod.MOE))
+    moe_proc = subprocess.Popen(
+        [sys.executable, "-c", moe_code, str(inputs), str(out / "moe.npz")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     wenv = dict(os.environ, OMP_NUM_THREADS="1",
                 PYTHONPATH=str(ROOT / "src"))
@@ -169,15 +263,17 @@ def run(tmp_path_factory):
             if p.returncode:
                 errors.append(f"rank {r} exited {p.returncode}: {err[-2000:]}")
         _, jerr = jax_proc.communicate(timeout=600)
+        _, merr = moe_proc.communicate(timeout=600)
     finally:
-        for p in [*procs, jax_proc]:
+        for p in [*procs, jax_proc, moe_proc]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     assert not errors, "\n".join(errors)
     assert jax_proc.returncode == 0, jerr[-3000:]
+    assert moe_proc.returncode == 0, merr[-3000:]
     ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(8)]
-    return dict(np.load(out / "jax.npz")), ranks
+    return {**np.load(out / "jax.npz"), **np.load(out / "moe.npz")}, ranks
 
 
 def _stage_block(key: str, want: np.ndarray, stage: int) -> np.ndarray:
@@ -277,11 +373,22 @@ def test_stage_param_specs_match_reference():
         got["layers"]
 
 
-def test_mixture_of_experts_refused():
-    cfg = _port_cfg(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16))
-    with pytest.raises(NotImplementedError, match="11.6"):
-        t_pipe.make_pp_loss_fn(cfg, t_tfm.Parallelism.none(),
-                               t_pipe.PipelineConfig(1, 2))
+@requires_modern_sharding
+def test_mixture_of_experts_refused(run):
+    """(The name is the one this check had while a pipeline over a mixture
+    of experts raised.) The pipeline over ``world_mod.MOE`` on (pipe 4,
+    data 2) against the same semantics in JAX built from the reference's
+    layer (the reference's ``shard_map`` cannot nest the MoE layer's own):
+    every rank's loss within 2e-4 absolute, every gradient leaf of every
+    stage within 1e-5 of that block's largest magnitude."""
+    want, ranks = run
+    for rank in ranks:
+        assert abs(float(rank["moe/loss"]) - float(want["moe/loss"])) \
+            <= LOSS_TOL
+        stage = int(rank["coord"][0])
+        for key, got in rank.items():
+            if key.startswith("moe/grads/"):
+                _close(got, _stage_block(key, want[key], stage))
 
 
 def test_one_stage_without_a_mesh_is_lm_loss():

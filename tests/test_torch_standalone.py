@@ -47,7 +47,9 @@ _NAMED = ("repro_torch.core.certs", "repro_torch.connectivity.host",
           "repro_torch.models.gnn", "repro_torch.models.pipeline",
           "repro_torch.data.sampler", "repro_torch.data",
           "repro_torch.configs.graphsage_reddit", "repro_torch.configs.pna",
-          "repro_torch.configs.egnn", "repro_torch.configs.gatedgcn")
+          "repro_torch.configs.egnn", "repro_torch.configs.gatedgcn",
+          "repro_torch.launch.workloads", "repro_torch.launch.dryrun",
+          "repro_torch.launch.hlo_analysis")
 
 _PROBE = """
 import importlib, pkgutil, sys

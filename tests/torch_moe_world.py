@@ -6,8 +6,9 @@ For each case of ``CASES`` the rank runs ``models/moe.py::make_moe_layer``
 (``dp_axes=("data",)``, ``tp_axis="model"``) on the whole batch and the
 full expert weights from the ``--inputs`` file: it takes its two experts
 of eight (or one of four), its block of the batch, and returns its block
-of the output and the aux loss. Then a call under autograd, which must
-raise.
+of the output and the aux loss; then the gradient of ``sum(y * ct) +
+aux`` (``ct`` a fixed cotangent, the rank's block of it) with respect to
+every input, the rank's part of it.
 
     python tests/torch_moe_world.py --rank R --world 8 --store FILE \\
         --inputs FILE --out DIR
@@ -49,12 +50,15 @@ def run(rank: int, inputs: Path, out: Path) -> None:
         y, aux = layer(*args)
         result[f"{name}/out"] = y.numpy()
         result[f"{name}/aux"] = aux.numpy()
-    try:
-        router = args[1].clone().requires_grad_(True)
-        layer(args[0], router, *args[2:])
-        result["grad_raised"] = np.asarray("")
-    except NotImplementedError as exc:
-        result["grad_raised"] = np.asarray(str(exc))
+        # the gradient of sum(y * ct) + aux: this rank's parts
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        y, aux = layer(*leaves)
+        per = y.shape[0]
+        ct = torch.from_numpy(data[f"{name}/ct"])[
+            int(mesh.get_coordinate()[0]) * per:][:per]
+        grads = torch.autograd.grad((y * ct).sum() + aux, leaves)
+        for a, g in zip(ARRAYS, grads):
+            result[f"{name}/grad/{a}"] = g.numpy()
     np.savez(out / f"rank{rank}.npz", **result)
 
 

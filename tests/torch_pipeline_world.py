@@ -6,7 +6,8 @@ The rank reads the language model's weights, the tokens and an AdamW
 state from the ``--inputs`` file, keeps its stage's block of the layers
 (``stageify_params(params, 4, stage)``), and runs ``make_pp_loss_fn``'s
 loss and its gradient (``torch.autograd.grad``), then one
-``make_pp_train_step`` step from the state's block.
+``make_pp_train_step`` step from the state's block; then the loss and the
+gradient of the same pipeline over a mixture of experts (``MOE``).
 
     python tests/torch_pipeline_world.py --rank R --world 8 --store FILE \\
         --inputs FILE --out DIR
@@ -32,6 +33,7 @@ from repro_torch.interop import (  # noqa: E402
     to_numpy,
 )
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.models.moe import MoEConfig  # noqa: E402
 from repro_torch.models.pipeline import (  # noqa: E402
     PipelineConfig,
     make_pp_loss_fn,
@@ -47,6 +49,8 @@ AXES, SHAPE = ("pipe", "data"), (4, 2)
 CFG = dict(name="t", n_layers=4, d_model=32, n_heads=4, n_kv_heads=2,
            d_ff=64, vocab=61, d_head=8, param_dtype="float32", attn_chunk=8,
            remat=False, tp_align=1)
+#: the mixture-of-experts case: CFG with four experts of top 2 per layer
+MOE = dict(n_experts=4, top_k=2, d_ff_expert=16)
 N_MICRO, MB, SEQ = 4, 2, 16
 #: the train step's optimizer and schedule (step 5 of 20, warmup 2)
 LR, SCHEDULE = 1e-3, {"total_steps": 20, "warmup": 2}
@@ -110,6 +114,17 @@ def run(inputs: Path, out: Path, rank: int) -> None:
               **{f"step/{k}": v.numpy() for k, v in metrics.items()}}
     for key in ("master", "m", "v"):
         result.update(flat(to_numpy(new_opt[key]), f"step/opt/{key}"))
+    # the same pipeline over a mixture of experts: its loss and gradient
+    mcfg = LMConfig(**CFG, moe=MoEConfig(**MOE))
+    mparams = stageify_params(
+        lm_params_from_numpy(unflat(data, "moe/params"), mcfg, device="cpu"),
+        pp.n_stages, stage)
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(mparams)]
+    loss = make_pp_loss_fn(mcfg, par, pp)(tree_unflatten(mparams, leaves),
+                                          batch)
+    grads = tree_unflatten(mparams, list(torch.autograd.grad(loss, leaves)))
+    result["moe/loss"] = loss.detach().numpy()
+    result.update(flat(to_numpy(grads), "moe/grads"))
     np.savez(out / f"rank{rank}.npz", **result)
 
 

@@ -4,7 +4,8 @@ spawns, on a ``("data", "model")`` mesh built by the port's
 
 ``--phase serve`` (eight ranks, a (4, 2) mesh): SASRec's weights from the
 ``--inputs`` file placed on the mesh by ``reshard_checkpoint`` with
-``param_specs``; ``serve_scores``, ``serve_bulk_topk`` (also from the
+``param_specs``; one ``make_recsys_steps(...)["train"]`` step over the
+row-sharded table (``DTensor`` batch); ``serve_scores``, ``serve_bulk_topk`` (also from the
 rank's local tensors) and ``retrieval_scores`` through the mesh branches;
 two steps of ``compressed_psum_tree`` over the data axis with error
 feedback, each rank's gradients from the inputs; a tree placed by
@@ -31,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -39,19 +41,31 @@ from repro_torch.checkpoint import (  # noqa: E402
     reshard_checkpoint,
 )
 from repro_torch.configs.sasrec import SMOKE  # noqa: E402
-from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh, spec_placements  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
 from repro_torch.models.transformer import Parallelism  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.optim.compression import compressed_psum_tree  # noqa: E402
+from repro_torch.training import make_recsys_steps as rec_steps  # noqa: E402
 
 #: the mesh's axes; the serve world's shape, the restore world's
 AXES = ("data", "model")
 SERVE_SHAPE, RESTORE_SHAPE = (4, 2), (2, 2)
 #: the top-k and chunk count of serve_bulk_topk
 K, N_CHUNKS = 10, 8
+#: the train step's AdamW counter (past the warmup of 100)
+TRAIN_STEP = 120
 #: the elastic tree and its spec
 ELASTIC = np.arange(64, dtype=np.float32).reshape(8, 8)
 ELASTIC_SPEC = ("data", "model")
+
+
+def tree_leaves_with_keys(params) -> list:
+    """(``item_emb`` / ``pos_emb`` / ``blocks/<i>/<name>``, leaf) pairs."""
+    out = [(k, v) for k, v in params.items() if k != "blocks"]
+    for i, blk in enumerate(params["blocks"]):
+        out += [(f"blocks/{i}/{k}", v) for k, v in blk.items()]
+    return out
 
 
 def serve(rank: int, inputs: Path, out: Path) -> None:
@@ -82,6 +96,20 @@ def serve(rank: int, inputs: Path, out: Path) -> None:
     arrays["retrieval"] = rec.retrieval_scores(
         params, data["history"], data["hist_mask"], data["candidates"],
         SMOKE, par).numpy()
+
+    # one train step over the row-sharded table: DTensor params, batch
+    # split over data, the AdamW state past the warmup
+    batch = {k: distribute_tensor(torch.from_numpy(data[f"train/{k}"]), mesh,
+                                  spec_placements(mesh, ("data", None)),
+                                  src_data_rank=None)
+             for k in ("seq", "pos", "neg")}
+    opt = adamw_init(params)
+    opt["step"] = torch.tensor(TRAIN_STEP, dtype=torch.int32)
+    new, _, metrics = rec_steps(SMOKE, par)["train"](params, opt, batch)
+    for key, val in tree_leaves_with_keys(new):
+        arrays[f"train/params/{key}"] = val.full_tensor().numpy()
+    for key in ("loss", "grad_norm"):
+        arrays[f"train/{key}"] = metrics[key].full_tensor().numpy()
 
     row = coord[0] * SERVE_SHAPE[1] + coord[1]
     group = mesh.get_group("data")
