@@ -34,6 +34,7 @@ from repro_torch.graph.datastructs import (
     EdgeList,
     compact_edges,
     take,
+    to_host,
 )
 
 
@@ -158,7 +159,7 @@ def bcc_blocks(edges: EdgeList) -> set[frozenset[int]]:
 def blocks_to_sets(out) -> set[frozenset[int]]:
     """(parent, child, block, tree_mask) buffers -> blocks as canonical
     frozensets of vertex ids."""
-    p, c, lab, tm = (x.cpu().numpy() for x in out)
+    p, c, lab, tm = (to_host(x) for x in out)
     by_label: dict[int, set[int]] = {}
     for i in np.nonzero(tm)[0]:
         b = by_label.setdefault(int(lab[i]), set())

@@ -41,7 +41,7 @@ from repro_torch.connectivity.host import (
 )
 from repro_torch.core.bridges_host import bridges_dfs
 from repro_torch.core.certs import certificate_names, get_certificate
-from repro_torch.graph.datastructs import INT, EdgeList, compact_edges
+from repro_torch.graph.datastructs import INT, EdgeList, compact_edges, to_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +128,7 @@ def resolve_certificate(kind: str, override: str | None = None) -> str:
 
 # ------------------------------------------------------- shared result glue
 def _pair_set(out, n_nodes: int) -> set[tuple[int, int]]:
-    s, d, m = (x.cpu().numpy() for x in out)
+    s, d, m = (to_host(x) for x in out)
     s, d = s[m], d[m]
     return set((int(min(a, b)), int(max(a, b))) for a, b in zip(s, d))
 
@@ -185,7 +185,7 @@ register(Analysis(
     device_fn=_cuts_device,
     host_fn=articulation_points_dfs,
     to_result=lambda out, n: set(
-        int(v) for v in np.nonzero(out.cpu().numpy()[:n])[0]),
+        int(v) for v in np.nonzero(to_host(out)[:n])[0]),
     out_struct=lambda n, cap: ((n,), torch.bool),
     device_input="full",
 ))
@@ -199,7 +199,7 @@ register(Analysis(
     device_fn=_two_ecc_device,
     host_fn=two_ecc_labels_dfs,
     # padding vertices are isolated singletons, so trimming is exact
-    to_result=lambda out, n: out.cpu().numpy()[:n].copy(),
+    to_result=lambda out, n: to_host(out)[:n].copy(),
     out_struct=lambda n, cap: ((n,), INT),
 ))
 

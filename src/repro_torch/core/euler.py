@@ -71,15 +71,15 @@ def euler_tour(tsrc, tdst, tmask, labels, n: int) -> dict:
     # cut each component's circuit at its root's first outgoing arc
     is_root = (labels == vs) & (deg > 0)
     head_arc = take(order, start)  # first arc out of each vertex
+    # only False reaches dump slot A; values on the device, not Python
+    # scalars, spare a copy to the card and its host sync
     is_head = torch.zeros(A + 1, dtype=torch.bool, device=dev)
-    is_head[torch.where(is_root, head_arc, A)] = True
-    is_head[A] = False
+    is_head[torch.where(is_root, head_arc, A)] = is_root
     nxt = torch.where(is_head[nxt], SENT, nxt)
 
-    # Wyllie list ranking: dist[a] = #arcs after a in its list
-    nx = torch.cat([nxt, torch.tensor([SENT], dtype=INT, device=dev)])
+    # Wyllie list ranking: dist[a] = #arcs after a in its list (0 at A)
+    nx = torch.cat([nxt, torch.full((1,), SENT, dtype=INT, device=dev)])
     dist = (nx != SENT).to(INT)
-    dist[A] = 0
     for _ in range(_ceil_log2(A) + 1):
         dist = dist + dist[nx]
         nx = nx[nx]

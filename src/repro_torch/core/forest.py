@@ -15,11 +15,13 @@ host sync per round, so a forest pass of r rounds syncs r times.
 
 While tracing is on, each pass of ``spanning_forest_ex`` and
 ``scan_first_forest_ex`` runs under a ``kernel/forest/<which>`` span
-(``edges``, ``path``, ``rounds``) with one ``kernel/round/<which>`` child per
-round (``round``, ``model_bytes``). The reference runs its rounds inside one
-XLA ``while_loop`` and divides the parent evenly among them; here each
-round ends at its own readback, so each child is timed for real, at no
-extra sync per round.
+(``edges``, ``n``, ``path``, ``rounds`` and a lazy ``live``: the pass's
+live non-loop slots, read back when the trace is exported) with one
+``kernel/round/<which>`` child per round (``round``) and the round's
+readback as ``sync/round/<which>``. The reference runs its rounds inside
+one XLA ``while_loop`` and divides the parent evenly among them; here
+each round ends at its own readback, so each child is timed for real, at
+no extra sync per round.
 """
 from __future__ import annotations
 
@@ -27,13 +29,15 @@ import math
 
 import torch
 
-from repro_torch.graph.datastructs import INF32, INT, EdgeList, host_value, take
-from repro_torch.kernels.boruvka_round.ops import (
-    boruvka_round,
-    boruvka_round_bytes,
-    frontier_round,
-    frontier_round_bytes,
+from repro_torch.graph.datastructs import (
+    INF32,
+    INT,
+    EdgeList,
+    host_value,
+    is_fake,
+    take,
 )
+from repro_torch.kernels.boruvka_round.ops import boruvka_round, frontier_round
 from repro_torch.kernels.segment_min.ops import kernel_path, segment_min
 from repro_torch.obs import get_tracer
 
@@ -42,26 +46,24 @@ def _kernel_span(which: str, edges: EdgeList, impl):
     """Run a hooking pass ``impl(mark)`` under a ``kernel/forest/<which>``
     span and attach one ``kernel/round/<which>`` child per round. ``mark``
     stamps the tracer's clock before the first round and after each
-    round's readback; the children span consecutive stamps and carry the
-    round's byte model (``kernels.boruvka_round.ops``) as ``model_bytes``.
-    Nothing is emitted, and ``mark`` is ``None``, while tracing is off."""
+    round's readback; the children span consecutive stamps. The span's
+    ``live`` stays on the device until the trace is exported. Nothing is
+    emitted, and ``mark`` is ``None``, while tracing is off."""
     tr = get_tracer()
     if not tr.enabled:
         return impl(None)
-    e, n = edges.capacity, edges.n_nodes
-    # the byte model's live slots: one readback, made only while tracing
-    live = int((edges.mask & (edges.src != edges.dst)).sum())
-    bytes_fn = (boruvka_round_bytes if which == "boruvka"
-                else frontier_round_bytes)
+    attrs = {"edges": edges.capacity, "n": edges.n_nodes,
+             "path": kernel_path(edges.device)}
+    if not is_fake(edges.mask):
+        attrs["live"] = (edges.mask & (edges.src != edges.dst)).sum()
     stamps: list[float] = []
-    with tr.span(f"kernel/forest/{which}", edges=e,
-                 path=kernel_path(edges.device)) as sp:
+    with tr.span(f"kernel/forest/{which}", **attrs) as sp:
         out = impl(lambda: stamps.append(tr._clock()))
         sp.attrs["rounds"] = out[-1]
         sp.sync(out)
     for i in range(out[-1]):
         tr.add(f"kernel/round/{which}", stamps[i], stamps[i + 1] - stamps[i],
-               parent=sp.index, round=i, model_bytes=bytes_fn(e, n, live))
+               parent=sp.index, round=i)
     return out
 
 
@@ -120,9 +122,12 @@ def _forest_impl(src, dst, mask, n: int, init_labels=None, mark=None):
         mark()
     while changed and rounds < log_n + 2:
         labels, chosen, hook = hook_round(src, dst, valid, labels, n)
-        forest[chosen] = True  # slot E is the dump slot, sliced off below
+        # slot E is the dump slot, sliced off below; a hooked component's
+        # edge is its own (a 2-cycle hooks once), and a device value, not
+        # a Python ``True``, spares a copy to the card and its host sync
+        forest[chosen] = hook
         # the round's one host sync (a dry run's fake tensor: one pass)
-        changed = host_value(hook.any(), if_fake=False)
+        changed = host_value(hook.any(), if_fake=False, site="round/boruvka")
         rounds += 1
         if mark is not None:
             mark()
@@ -199,11 +204,12 @@ def _sfs_impl(src, dst, mask, n: int, comp_labels, round_fn=frontier_round,
         newly = best_p < INF32
         parent = torch.where(newly, best_p, parent)
         level = torch.where(newly, rounds + 1, level)
-        # slot E is the dump slot, sliced off below
-        forest[torch.where(newly, best_e, E)] = True
+        # slot E is the dump slot, sliced off below; a newly reached
+        # vertex's edge is its own, and a device value spares a host sync
+        forest[torch.where(newly, best_e, E)] = newly
         visited, frontier = visited | newly, newly
         # the round's one host sync (a dry run's fake tensor: one pass)
-        changed = host_value(newly.any(), if_fake=False)
+        changed = host_value(newly.any(), if_fake=False, site="round/sfs")
         rounds += 1
         if mark is not None:
             mark()

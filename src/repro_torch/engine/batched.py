@@ -21,7 +21,10 @@ follow. So the batch runs as ONE DISJOINT-UNION PASS
    ``device_input="full"`` kinds on the row's own buffer).
 
 The three stages run in the spans ``stage/union``,
-``stage/certificate_build/<name>`` and ``stage/final/<kind>``.
+``stage/certificate_build/<name>`` and ``stage/final/<kind>``. The
+one-graph program (``make_analysis_fn``) opens the same names as stream
+spans, with ``stage/tour`` inside ``stage/final/<kind>`` and
+``stage/tombstone`` before them.
 
 This equals the vmapped reference slot for slot: compaction is stable in
 slot order; a Borůvka round picks each component's minimum slot and breaks
@@ -261,22 +264,29 @@ def make_analysis_fn(n_nodes: int, kind: str = "bridges",
         raise ValueError(f"unknown final stage {final!r}")
     cert_cap = certificate_capacity(n_nodes)
     out_cap = max(n_nodes - 1, 1)
-    certify = certificate_fn(certificate if certificate is not None
-                             else analysis.certificate)
+    cert_name = (certificate if certificate is not None
+                 else analysis.certificate)
+    certify = certificate_fn(cert_name)
     tick = first_run(on_trace)
 
     def one(src, dst, mask, *keys):
         tick()
+        # stream spans: each records the card's interval, and none syncs
+        tr, dev = get_tracer(), src.device
         if with_delete:
-            mask, _ = tombstone_mask(src, dst, mask, *keys)
+            with tr.span("stage/tombstone", stream=dev):
+                mask, _ = tombstone_mask(src, dst, mask, *keys)
         buf = EdgeList(src, dst, mask, n_nodes)
         if final == "host" or analysis.device_input == "certificate":
-            buf = certify(buf, capacity=cert_cap)
+            with tr.span(f"stage/certificate_build/{cert_name}", stream=dev):
+                buf = certify(buf, capacity=cert_cap)
         if final == "host":
             return buf.src, buf.dst, buf.mask
-        st = tour_state(buf.src, buf.dst, buf.mask, n_nodes)
-        return analysis.device_fn(buf.src, buf.dst, buf.mask, n_nodes, st,
-                                  out_cap)
+        with tr.span(f"stage/final/{analysis.kind}", stream=dev):
+            with tr.span("stage/tour", stream=dev):
+                st = tour_state(buf.src, buf.dst, buf.mask, n_nodes)
+            return analysis.device_fn(buf.src, buf.dst, buf.mask, n_nodes,
+                                      st, out_cap)
 
     return one
 

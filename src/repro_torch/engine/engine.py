@@ -94,6 +94,7 @@ from repro_torch.graph.datastructs import (
     ChunkedEdgeStream,
     EdgeList,
     admission_capacity,
+    pad_edges,
     resolve_device,
 )
 from repro_torch.obs import get_metrics, get_tracer
@@ -406,8 +407,10 @@ class BridgeEngine:
         kind = analysis.kind
         tr = get_tracer()
         with tr.span("stage/pad"):
-            el = EdgeList.from_arrays(src, dst, n_bucket, capacity=cap,
-                                      device=self.device)
+            # int32 src and dst: 8 B an edge, in two pageable copies
+            with tr.span("stage/pad/h2d", bytes=8 * len(src)):
+                el = EdgeList.upload(src, dst, n_bucket, device=self.device)
+            el = pad_edges(el, cap)
             args = (el.src, el.dst, el.mask)
             kcap = None
             if delete is not None:
@@ -420,8 +423,8 @@ class BridgeEngine:
             key, lambda: build_analysis_program(
                 n_bucket, kind, final, self.stats.count_trace,
                 with_delete=kcap is not None, certificate=cert_name))
-        with tr.span(f"stage/pipeline/{kind}", n_bucket=n_bucket,
-                     cap=cap, certificate=cert_name) as sp:
+        with tr.span(f"stage/pipeline/{kind}", stream=el.src.device,
+                     n_bucket=n_bucket, cap=cap, certificate=cert_name) as sp:
             out = sp.sync(fn(*args))
         with tr.span("stage/convert"):
             if final == "host":

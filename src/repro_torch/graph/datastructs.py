@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 
+from repro_torch.obs import host_sync
+
 INT = torch.int32
 INF32 = int(np.iinfo(np.int32).max)
 INT32_MIN = int(np.iinfo(np.int32).min)
@@ -47,16 +49,26 @@ def is_fake(t) -> bool:
     return isinstance(t, FakeTensor)
 
 
-def host_value(t, if_fake):
+def host_value(t, if_fake, site: str):
     """``t``'s value on the host (a Python number, ``t`` itself if it is
     one), or ``if_fake`` for a fake tensor, which has no value: the one
     place where the dry run answers a host sync. A round loop's exit test
-    passes the answer that stops it after one pass."""
+    passes the answer that stops it after one pass. The wait is the span
+    ``sync/<site>`` while tracing (``obs.host_sync``)."""
     if not isinstance(t, torch.Tensor):
         return t
     if is_fake(t):
         return if_fake
-    return t.item()
+    with host_sync(site):
+        return t.item()
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """A device buffer as a host array, for a result: a copy the host
+    waits for, the span ``sync/convert`` while tracing
+    (``obs.host_sync``)."""
+    with host_sync("convert"):
+        return x.cpu().numpy()
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -111,14 +123,22 @@ class EdgeList:
     @staticmethod
     def from_arrays(src, dst, n_nodes: int, capacity: int | None = None,
                     device=None) -> "EdgeList":
-        dev = resolve_device(device)
-        src = torch.tensor(np.asarray(src, np.int32), device=dev)
-        dst = torch.tensor(np.asarray(dst, np.int32), device=dev)
-        mask = torch.ones(src.shape, dtype=torch.bool, device=dev)
-        el = EdgeList(src, dst, mask, n_nodes)
+        el = EdgeList.upload(src, dst, n_nodes, device)
         if capacity is not None and capacity != el.capacity:
             el = pad_edges(el, capacity)
         return el
+
+    @staticmethod
+    def upload(src, dst, n_nodes: int, device=None) -> "EdgeList":
+        """The host arrays as int32 on ``device``, every slot real: two
+        pageable copies, each a host sync on the card (``sync/h2d``)."""
+        dev = resolve_device(device)
+        with host_sync("h2d"):
+            src = torch.tensor(np.asarray(src, np.int32), device=dev)
+        with host_sync("h2d"):
+            dst = torch.tensor(np.asarray(dst, np.int32), device=dev)
+        mask = torch.ones(src.shape, dtype=torch.bool, device=dev)
+        return EdgeList(src, dst, mask, n_nodes)
 
     def to_numpy(self):
         """Host copy: (src, dst) of the valid edges only."""
@@ -174,7 +194,9 @@ def compact_edges(edges: EdgeList, capacity: int,
     out_mask = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
     out_src[idx] = edges.src
     out_dst[idx] = edges.dst
-    out_mask[idx] = True
+    # ``sel`` is True wherever idx is a real slot; a Python ``True`` here
+    # would be copied to the card first, a host sync
+    out_mask[idx] = sel
     return EdgeList(out_src[:capacity], out_dst[:capacity],
                     out_mask[:capacity], edges.n_nodes)
 

@@ -321,7 +321,8 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if n > k:
         split |= vals[:, k] == edge
     pos = pos[:, :k]
-    if host_value(split.any(), if_fake=False):  # a dry run: no ties
+    # a dry run: no ties
+    if host_value(split.any(), if_fake=False, site="topk/ties"):
         at = split.nonzero()[:, 0]
         every = torch.arange(n, device=x.device)
         pos[at] = torch.topk(_order_keys(rows[at], every), k, dim=-1).indices

@@ -497,7 +497,8 @@ def decode_step(params, cache, tokens, valid_len, cfg: LMConfig,
     """
     ck, cv = cache
     # a dry run's fake length: the step that fills the cache
-    valid_len = int(host_value(valid_len, if_fake=ck.shape[2]))
+    valid_len = int(host_value(valid_len, if_fake=ck.shape[2],
+                               site="decode/valid_len"))
     x = _embed(params, tokens, par)
     b, s = x.shape[:2]
     positions = _positions(b, s, valid_len - s, x.device)

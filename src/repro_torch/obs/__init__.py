@@ -5,6 +5,38 @@ registry (``metrics.py``) and the profiler capture (``profile.py``) of
 The tracer is off by default: the module-level tracer is the no-op
 ``NULL_TRACER`` until ``enable_tracing()``; instrumented code always goes
 through ``get_tracer()``, so flipping the switch needs no re-plumbing.
+
+The spans of a one-shot call (``repro_torch.analyze``), and what reads
+each (``cardbench/metrics/<name>.py``; "stream" marks a stream span, whose
+``device_t0``/``device_ms`` give the card's interval, "synced" one that
+waits for the card at its close):
+
+* ``engine/analyze/<kind>``: the request; a container.
+* ``stage/pad`` (``pad_ms``): the upload and the pad to the shape bucket;
+  its child ``stage/pad/h2d`` (``bytes``: 8 a real edge) the two
+  host-to-card copies alone (``h2d_copy_ms``).
+* ``stage/pipeline/<kind>``, stream and synced (``pipeline_ms``,
+  ``pipeline_ms.cuts``, the rooflines' shapes): the one-shot program.
+  Inside it, each a stream span with no sync of its own:
+  ``stage/tombstone`` (with ``delete=``),
+  ``stage/certificate_build/<name>`` (``certificate_ms``: both forest
+  passes and the compaction) and ``stage/final/<kind>`` (``final_ms``)
+  with its child ``stage/tour`` (``tour_ms``: ``tour_state``).
+* ``kernel/forest/<which>``, synced (the rooflines' passes): one forest
+  pass, with ``edges`` (slots), ``n``, ``rounds`` and a lazy ``live``
+  (its live non-loop slots), and one synthetic ``kernel/round/<which>``
+  child a round (``round``); ``kernel/segment_min`` (``keys``,
+  ``segments``, a lazy ``live``): one launch of that op.
+* ``stage/convert`` (``convert_ms``): the device answer to the host's set.
+* ``sync/<site>`` (``host_syncs_per_req`` counts them): every place the
+  host waits for the card (``host_sync``): ``sync/round/boruvka`` and
+  ``sync/round/sfs`` (a round loop's exit test), ``sync/h2d`` (a pageable
+  copy to the card), ``sync/convert`` (a copy of the answer to the host).
+
+Other paths (the live engine, the batch, the merge, the scheduler) open
+their own ``engine/*``, ``stage/*``, ``merge/*``, ``sched/*`` and
+``recover/*`` spans; ``stage_rollup()`` bills the outermost ``stage/``,
+``kernel/``, ``merge/`` and ``host/`` spans.
 """
 from __future__ import annotations
 
@@ -17,6 +49,7 @@ from repro_torch.obs.metrics import (
 )
 from repro_torch.obs.profile import profiler_trace
 from repro_torch.obs.tracer import (
+    NULL_SPAN,
     NULL_TRACER,
     STAGE_PREFIXES,
     NullTracer,
@@ -49,6 +82,17 @@ def disable_tracing() -> None:
     _TRACER = NULL_TRACER
 
 
+def host_sync(site: str):
+    """A context manager around one place where the host waits for the
+    card (a readback, a pageable copy): while tracing, the span
+    ``sync/<site>`` over the wait; otherwise a shared no-op, at the cost
+    of one ``enabled`` check."""
+    tr = _TRACER
+    if tr.enabled:
+        return tr.span("sync/" + site)
+    return NULL_SPAN
+
+
 def get_metrics() -> MetricsRegistry:
     """The process-global metrics registry (the engine's memory gauges)."""
     return _METRICS
@@ -62,4 +106,5 @@ def snapshot() -> dict:
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACER",
            "NullTracer", "STAGE_PREFIXES", "Span", "Tracer",
            "default_latency_buckets", "disable_tracing", "enable_tracing",
-           "get_metrics", "get_tracer", "profiler_trace", "snapshot"]
+           "get_metrics", "get_tracer", "host_sync", "profiler_trace",
+           "snapshot"]

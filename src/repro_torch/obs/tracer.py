@@ -7,6 +7,25 @@ boundaries (``repro.obs.tracer``).
   ``out`` before it stamps its end time, so asynchronously launched CUDA
   work is billed to the stage that launched it rather than to whichever
   later host sync absorbs it. On CPU tensors the wait does nothing.
+* ``Tracer.span(name, stream=device)`` opens a STREAM span: it also
+  records a CUDA event on the device's current stream at enter and at
+  exit, with no host sync, so the interval in which the card's stream did
+  the span's work is known even where the host left the span long before.
+  ``spans()`` resolves the events once, after one synchronize, and puts
+  the stream interval on the tracer's own clock as ``attrs["device_t0"]``
+  (seconds) and ``attrs["device_ms"]``; ``t0``/``dur`` stay the host's.
+  The mapping is an ANCHOR per device: one event recorded on an idle
+  stream and the host stamp as its record returns, taken at the first
+  stream span (after one stream sync) and again at every synced span's
+  close, which has just synchronized anyway, so the two clocks cannot
+  drift apart over a long window. On the CPU (``stream=`` a CPU device,
+  or ``True`` before CUDA is initialized) the host is the stream:
+  ``device_*`` is the host's own interval. ``stream=True`` names the
+  current CUDA device.
+* A span attribute may be a 0-dim tensor (a LAZY attribute, such as a
+  count the card holds): ``spans()`` resolves every such attribute in one
+  batched readback per device and dtype, so tracing adds no readback
+  where the value is made.
 * ``Tracer.add(...)`` records a synthetic closed span under a parent
   index (the reference attaches its per-round kernel spans this way).
 * ``spans()`` lists the closed spans; ``rollup()`` folds them into a
@@ -15,15 +34,16 @@ boundaries (``repro.obs.tracer``).
   per-stage cost table whose sum is compared with wall time;
   ``chrome_trace()``/``write_chrome_trace()`` export the Chrome
   trace-event format of the reference key for key, so Chrome and Perfetto
-  open both packages' traces alike.
+  open both packages' traces alike; stream spans add their device
+  intervals on a second track (``tid`` 1, "card stream").
 * While a ``profile.profiler_trace`` capture runs, each span also opens a
   ``torch.profiler.record_function`` of its own name, so the device
   timeline carries the span names (the reference's ``jax.named_scope``
   labels). With no capture running it adds nothing.
 
 A DISABLED tracer is the module-level ``NULL_TRACER`` singleton: every
-``span()`` returns one shared no-op handle, ``add`` returns at once, and
-no clock is read.
+``span()`` (``stream=`` too) returns one shared no-op handle, ``add``
+returns at once, and no clock is read and no event recorded.
 
 Single-threaded by design: spans must be closed in LIFO order on one
 thread.
@@ -72,12 +92,16 @@ class Span:
 
     ``sp.sync(value)`` registers a value to wait for at span close.
     ``sp.t0``/``sp.dur``/``sp.index`` are readable after the with-block.
+    ``stream`` is ``None`` for a host span, ``"host"`` for a stream span
+    whose stream is the host, or the CUDA device whose current stream it
+    records events on.
     """
 
     __slots__ = ("tracer", "name", "attrs", "t0", "dur", "index", "depth",
-                 "parent", "_pending", "_label")
+                 "parent", "_pending", "_label", "stream", "_events")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict,
+                 stream=None):
         self.tracer = tracer
         self.name = name
         self.attrs = attrs
@@ -87,6 +111,8 @@ class Span:
         self.parent = -1
         self._pending = None
         self._label = None
+        self.stream = stream
+        self._events = None
 
     def sync(self, value):
         """Wait for ``value`` at span close (device-sync boundary)."""
@@ -102,16 +128,24 @@ class Span:
         if _PROFILER_LABELS["on"]:
             self._label = torch.profiler.record_function(self.name)
             self._label.__enter__()
+        if isinstance(self.stream, torch.device):
+            self._events = (tr._anchor(self.stream), _record(self.stream))
         self.t0 = tr._clock()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._events is not None:
+            self._events += (_record(self.stream),)
+        synced = ()
         if self._pending is not None:
-            for device in cuda_devices(self._pending):
+            synced = cuda_devices(self._pending)
+            for device in synced:
                 torch.cuda.synchronize(device)
             self._pending = None
         tr = self.tracer
         self.dur = tr._clock() - self.t0
+        for device in synced:
+            tr._take_anchor(device)
         if self._label is not None:
             self._label.__exit__(exc_type, exc, tb)
             self._label = None
@@ -120,6 +154,31 @@ class Span:
         tr._stack.pop()
         tr._commit(self)
         return False
+
+
+def _record(device: torch.device):
+    """A timing event recorded on ``device``'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _stream_of(stream):
+    """``Span.stream`` for a ``stream=`` argument (None, True or a
+    device): None (a host span), ``"host"`` (the host is the stream) or a
+    CUDA device."""
+    if stream is None:
+        return None
+    if stream is True:
+        if not torch.cuda.is_initialized():
+            return "host"
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(stream)
+    if device.type != "cuda":
+        return "host"
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class Tracer:
@@ -135,9 +194,39 @@ class Tracer:
         #: closed spans as dicts, slot-ordered by span START (index)
         self._spans: list[dict | None] = []
         self._stack: list[Span] = []
+        #: per CUDA device, the current ``(event, host stamp)`` anchor
+        self._anchors: dict = {}
+        #: closed stream spans on a card not yet resolved:
+        #: ``(attrs, device, (anchor, enter event, exit event))``
+        self._unresolved: list = []
+        #: attrs dicts of closed spans that hold a lazy (tensor) value
+        self._lazy: list[dict] = []
 
-    def span(self, name: str, **attrs) -> Span:
-        return Span(self, name, attrs)
+    def span(self, name: str, *, stream=None, **attrs) -> Span:
+        return Span(self, name, attrs, _stream_of(stream))
+
+    def _take_anchor(self, device: torch.device) -> tuple:
+        """A new anchor on ``device``, whose stream must be idle: the host
+        stamp taken as the event's record returns. The call creates the
+        event first and can take 0.1 ms on the host; the idle card stamps
+        the event a few microseconds after the call submits it, at its
+        end, so an interval mapped through the anchor lies that much
+        early, never late."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        host = self._clock()
+        ev.synchronize()
+        self._anchors[device] = anchor = (ev, host)
+        return anchor
+
+    def _anchor(self, device: torch.device) -> tuple:
+        """The current anchor on ``device``; the first one waits for the
+        stream to drain."""
+        anchor = self._anchors.get(device)
+        if anchor is None:
+            torch.cuda.current_stream(device).synchronize()
+            anchor = self._take_anchor(device)
+        return anchor
 
     #: a tracer is a callable: ``with tracer("stage/x"):`` == ``.span``
     __call__ = span
@@ -147,10 +236,43 @@ class Tracer:
         return len(self._spans) - 1
 
     def _commit(self, sp: Span) -> None:
+        if sp._events is not None:
+            self._unresolved.append((sp.attrs, sp.stream, sp._events))
+            sp._events = None
+        elif sp.stream == "host":
+            sp.attrs["device_t0"] = sp.t0
+            sp.attrs["device_ms"] = 1e3 * sp.dur
+        self._note_lazy(sp.attrs)
         self._spans[sp.index] = {
             "name": sp.name, "t0": sp.t0, "dur": sp.dur, "depth": sp.depth,
             "parent": sp.parent, "index": sp.index, "attrs": sp.attrs,
         }
+
+    def _note_lazy(self, attrs: dict) -> None:
+        if any(isinstance(v, torch.Tensor) for v in attrs.values()):
+            self._lazy.append(attrs)
+
+    def _resolve(self) -> None:
+        """Put every closed stream span's interval on the host clock and
+        read every lazy attribute back: one synchronize per device, one
+        readback per device and dtype."""
+        for device in {d for _, d, _ in self._unresolved}:
+            torch.cuda.synchronize(device)
+        for attrs, _, ((anchor, host), enter, leave) in self._unresolved:
+            attrs["device_t0"] = host + anchor.elapsed_time(enter) / 1e3
+            attrs["device_ms"] = enter.elapsed_time(leave)
+        self._unresolved = []
+        groups: dict = {}
+        for attrs in self._lazy:
+            for key, v in attrs.items():
+                if isinstance(v, torch.Tensor):
+                    groups.setdefault((v.device, v.dtype), []).append(
+                        (attrs, key, v))
+        for items in groups.values():
+            values = torch.stack([v.reshape(()) for _, _, v in items])
+            for (attrs, key, _), value in zip(items, values.tolist()):
+                attrs[key] = value
+        self._lazy = []
 
     def add(self, name: str, t0: float, dur: float, *, parent: int = -1,
             **attrs) -> None:
@@ -159,29 +281,46 @@ class Tracer:
         depth = 0
         if 0 <= parent < len(self._spans) and self._spans[parent]:
             depth = self._spans[parent]["depth"] + 1
+        self._note_lazy(attrs)
         self._spans.append({
             "name": name, "t0": t0, "dur": dur, "depth": depth,
             "parent": parent, "index": len(self._spans), "attrs": attrs,
         })
 
     def spans(self) -> list[dict]:
-        """Closed spans, start-ordered (open spans are excluded)."""
+        """Closed spans, start-ordered (open spans are excluded), their
+        stream intervals and lazy attributes resolved."""
+        if self._unresolved or self._lazy:
+            self._resolve()
         return [s for s in self._spans if s is not None]
 
     def chrome_trace(self) -> dict:
         """Chrome trace-event JSON object (``traceEvents`` complete
-        events; microsecond timestamps; span attrs under ``args``)."""
+        events; microsecond timestamps; span attrs under ``args``). The
+        stream spans' device intervals go on track 1, "card stream"."""
         events = [{
             "name": "process_name", "ph": "M", "pid": 0, "tid": 0,
             "args": {"name": "repro.obs"},
         }]
+        card = []
         for s in self.spans():
             events.append({
                 "name": s["name"], "ph": "X", "pid": 0, "tid": 0,
                 "ts": s["t0"] * 1e6, "dur": s["dur"] * 1e6,
                 "args": {k: _jsonable(v) for k, v in s["attrs"].items()},
             })
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+            if "device_t0" in s["attrs"]:
+                card.append({
+                    "name": s["name"], "ph": "X", "pid": 0, "tid": 1,
+                    "ts": s["attrs"]["device_t0"] * 1e6,
+                    "dur": s["attrs"]["device_ms"] * 1e3,
+                    "args": {"index": s["index"]},
+                })
+        if card:
+            events += [{"name": "thread_name", "ph": "M", "pid": 0,
+                        "tid": tid, "args": {"name": name}}
+                       for tid, name in ((0, "host"), (1, "card stream"))]
+        return {"traceEvents": events + card, "displayTimeUnit": "ms"}
 
     def rollup(self) -> dict[str, dict]:
         """Per-name rollup: {count, total_s, self_s, max_s}. ``self_s`` is
@@ -264,7 +403,7 @@ class _NullSpan:
         return value
 
 
-_NULL_SPAN = _NullSpan()
+NULL_SPAN = _NullSpan()
 
 
 class NullTracer:
@@ -274,7 +413,7 @@ class NullTracer:
     enabled = False
 
     def span(self, name: str = "", **attrs) -> _NullSpan:
-        return _NULL_SPAN
+        return NULL_SPAN
 
     __call__ = span
 

@@ -1934,3 +1934,81 @@ def test_one_rank_dtensor_train_step_on_card(nccl_grid):
                     tree_leaves(got_p) + tree_leaves([got_o[k]
                                                       for k in keys])):
         assert torch.equal(a.to_local(), b.to_local())
+
+
+# ------------------------------------------- host syncs and stream spans
+def _sync_warnings(call) -> int:
+    """The synchronizing CUDA operations ``call`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (the mode is
+    set before the count starts: setting it may warn once of itself)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("kind", ["bridges", "cuts"])
+def test_every_host_sync_is_a_span(cuda, kind):
+    """One ``analyze`` call: the syncs the debug mode counts with tracing
+    off equal the ``sync/*`` spans of the same call with tracing on."""
+    from repro_torch import obs
+
+    s, d, _ = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+
+    def call():
+        return analyze(s, d, 3000, kind=kind, final="device", device=cuda)
+
+    want = call()
+    torch.cuda.synchronize()
+    warned = _sync_warnings(call)
+    tr = obs.enable_tracing()
+    try:
+        assert call() == want
+    finally:
+        obs.disable_tracing()
+    spans = [x["name"] for x in tr.spans() if x["name"].startswith("sync/")]
+    print(f"\n{kind}: {warned} sync warnings, {len(spans)} sync spans "
+          f"({', '.join(f'{n} {spans.count(n)}' for n in sorted(set(spans)))})")
+    assert warned == len(spans) > 0
+
+
+def test_stream_spans_close_with_their_synced_pipeline(cuda):
+    """Each synced ``stage/pipeline/bridges`` span of a traced run: its
+    stream interval ends at or before the host's close, within 100 us at
+    the median, and the stream spans inside it lie within it."""
+    import statistics
+
+    from repro_torch import obs
+
+    s, d, _ = gen.planted_bridge_graph(3000, 60_000, 5, seed=1)
+    analyze(s, d, 3000, kind="bridges", final="device", device=cuda)
+    tr = obs.enable_tracing()
+    try:
+        for _ in range(30):
+            analyze(s, d, 3000, kind="bridges", final="device", device=cuda)
+    finally:
+        obs.disable_tracing()
+    spans = tr.spans()
+
+    def end(x):
+        return x["attrs"]["device_t0"] + x["attrs"]["device_ms"] / 1e3
+
+    pipes = [x for x in spans if x["name"] == "stage/pipeline/bridges"]
+    lag = [x["t0"] + x["dur"] - end(x) for x in pipes]
+    print(f"\nhost close - stream close (us): min {1e6 * min(lag):.1f}, "
+          f"median {1e6 * statistics.median(lag):.1f}, "
+          f"max {1e6 * max(lag):.1f} over {len(lag)}")
+    assert len(pipes) == 30 and min(lag) >= 0
+    assert statistics.median(lag) <= 100e-6
+    inner = {x["index"]: x for x in pipes}
+    for x in spans:
+        if x["parent"] in inner and "device_t0" in x["attrs"]:
+            p = inner[x["parent"]]
+            assert x["attrs"]["device_t0"] >= p["attrs"]["device_t0"] - 20e-6
+            assert end(x) <= end(p) + 20e-6

@@ -225,7 +225,7 @@ def test_degraded_plans_match_reference():
 def test_failover_spans_match_reference():
     """The drill's spans (certify, levels, machines, the recovery's) with
     their depths and attributes, under both tracers (the forest's kernel
-    spans are the port's own)."""
+    spans and the host syncs are the port's own)."""
     def record(o, fn, shards, injector):
         tr = o.enable_tracing()
         try:
@@ -233,7 +233,7 @@ def test_failover_spans_match_reference():
         finally:
             o.disable_tracing()
         return [(x["name"], x["depth"], x["attrs"]) for x in tr.spans()
-                if not x["name"].startswith("kernel/")]
+                if not x["name"].startswith(("kernel/", "sync/"))]
 
     got = record(obs, tm.simulate_failover_host, SHARDS,
                  FailureInjector(kill_schedule={VICTIM: BOUNDARY}))

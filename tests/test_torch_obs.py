@@ -4,7 +4,10 @@ trace export (``chrome_trace``, ``write_chrome_trace``) and its per-stage
 rollup (``stage_rollup``) on the same span sequence under the same fake
 clock; the disabled tracer's no-ops; the ``kernel/forest/<which>`` spans of
 a host forest pass with one ``kernel/round/<which>`` child per round; and
-``profiler_trace`` on the CPU.
+``profiler_trace`` on the CPU. Then the port's own: lazy attributes, stream
+spans on the CPU (the host is the stream), ``host_sync``, and the spans of
+one traced ``analyze`` call (the one-shot pipeline's stages, its host
+syncs, the copy apart from the pad).
 
 Tolerance: exact equality (the fake clock makes every time a fixed float).
 """
@@ -23,10 +26,6 @@ from repro.graph import generators as gen
 from repro_torch import obs as tobs
 from repro_torch.core import forest as tforest
 from repro_torch.graph import datastructs as tds
-from repro_torch.kernels.boruvka_round.ops import (
-    boruvka_round_bytes,
-    frontier_round_bytes,
-)
 
 N = 48
 
@@ -57,9 +56,9 @@ def _script(tr):
             with tr("stage/inner", ratio=0.5, ok=True):
                 pass
         tr.add("kernel/round/boruvka", sp.t0, sp.dur / 2, parent=sp.index,
-               round=0, model_bytes=900)
+               round=0, bytes=900)
         tr.add("kernel/round/boruvka", sp.t0 + sp.dur / 2, sp.dur / 2,
-               parent=sp.index, round=1, model_bytes=900)
+               parent=sp.index, round=1, bytes=900)
     with tr.span("kernel/forest/sfs", path=("a", 1)):
         pass
     with tr.span("merge/level0", machines=2):
@@ -138,12 +137,19 @@ def _graph(seed):
     return s, d
 
 
+#: spans the port records and the reference does not: its host syncs and
+#: its segment-min launches
+PORT_ONLY = ("sync/", "kernel/segment_min")
+
+
 @pytest.mark.parametrize("which", ["boruvka", "sfs"])
 def test_forest_spans_match_reference(which):
     """A host forest pass emits one ``kernel/forest/<which>`` span with one
     ``kernel/round/<which>`` child per round, as the reference does: the
-    same names, counts, parent links and rounds; the attributes carry the
-    port's own path and byte model, and each child is a measured round."""
+    same names, counts, parents and rounds (the port's own spans left
+    out); the attributes carry the port's own path, ``n`` and ``live``
+    (for the byte rule of each round), and each child is a measured
+    round."""
     s, d = _graph(3)
     jel = jds.EdgeList.from_arrays(s, d, N)
     tel = tds.EdgeList.from_arrays(s, d, N, device="cpu")
@@ -159,22 +165,24 @@ def test_forest_spans_match_reference(which):
     assert rounds == int(jout[-1]) > 0
 
     def shape(tr):
-        return [(x["name"], x["parent"], x["depth"], x["attrs"].get("round"))
-                for x in tr.spans()]
+        spans = tr.spans()
+        names = {x["index"]: x["name"] for x in spans}
+        return [(x["name"], names.get(x["parent"]), x["depth"],
+                 x["attrs"].get("round")) for x in spans
+                if not x["name"].startswith(PORT_ONLY)]
 
     assert shape(tt) == shape(jt)
     parent = [x for x in tt.spans() if x["name"] == f"kernel/forest/{which}"]
     kids = [x for x in tt.spans() if x["name"] == f"kernel/round/{which}"]
     assert len(parent) == 1 and len(kids) == rounds
     attrs = parent[0]["attrs"]
-    assert attrs == {"edges": tel.capacity, "path": "ref", "rounds": rounds}
-    assert set(attrs) == set(next(x for x in jt.spans()
-                                  if x["name"] == parent[0]["name"])["attrs"])
     live = int(((tel.mask) & (tel.src != tel.dst)).sum())
-    model = {"boruvka": boruvka_round_bytes,
-             "sfs": frontier_round_bytes}[which](tel.capacity, N, live)
-    assert [k["attrs"] for k in kids] == [
-        {"round": i, "model_bytes": model} for i in range(rounds)]
+    assert attrs == {"edges": tel.capacity, "n": N, "path": "ref",
+                     "live": live, "rounds": rounds}
+    assert type(attrs["live"]) is int
+    assert set(attrs) > set(next(x for x in jt.spans()
+                                 if x["name"] == parent[0]["name"])["attrs"])
+    assert [k["attrs"] for k in kids] == [{"round": i} for i in range(rounds)]
     assert all(k["parent"] == parent[0]["index"] for k in kids)
     # consecutive measured rounds, inside the parent
     for a, b in zip(kids, kids[1:]):
@@ -233,3 +241,131 @@ def test_profiler_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert [x["name"] for x in tr.spans()] == ["stage/pipeline/bridges",
                                                "stage/after"]
     assert np.isfinite(tr.spans()[0]["dur"])
+
+
+# ------------------------------------------- the port's own tracing
+def test_lazy_attributes_resolve_at_spans():
+    """A 0-dim tensor attribute stays a tensor until ``spans()``, which
+    reads every one back at once, spans and synthetic spans alike."""
+    tr = tobs.Tracer(clock=_fake_clock())
+    with tr.span("kernel/forest/boruvka", live=torch.tensor(7)) as sp:
+        sp.attrs["rounds"] = 3
+    tr.add("kernel/round/boruvka", 0.0, 1.0, parent=sp.index,
+           hooked=torch.tensor(True))
+    with tr.span("stage/x", ok=torch.tensor(2, dtype=torch.int32)):
+        pass
+    assert isinstance(tr._spans[0]["attrs"]["live"], torch.Tensor)
+    got = [s["attrs"] for s in tr.spans()]
+    assert got == [{"live": 7, "rounds": 3}, {"hooked": True}, {"ok": 2}]
+    assert [type(v) for a in got for v in a.values()] == [int, int, bool, int]
+    assert tr._lazy == []
+    args = [ev["args"] for ev in tr.chrome_trace()["traceEvents"]
+            if ev["ph"] == "X"]
+    assert args == got
+
+
+@pytest.mark.parametrize("stream", [True, "cpu"])
+def test_stream_span_on_the_cpu_is_its_host_interval(stream):
+    """On the CPU the host is the stream: a stream span's ``device_t0`` and
+    ``device_ms`` are its own host interval, and the Chrome export puts
+    them on the card-stream track beside the host's."""
+    tr = tobs.Tracer(clock=_fake_clock())
+    with tr.span("stage/pipeline/bridges", stream=stream, n_bucket=16):
+        with tr.span("stage/tour", stream=torch.device(stream)
+                     if isinstance(stream, str) else stream):
+            pass
+        with tr.span("kernel/forest/boruvka"):
+            pass
+    spans = tr.spans()
+    for s in spans[:2]:
+        assert s["attrs"]["device_t0"] == s["t0"]
+        assert s["attrs"]["device_ms"] == 1e3 * s["dur"]
+    assert set(spans[0]["attrs"]) == {"n_bucket", "device_t0", "device_ms"}
+    assert "device_t0" not in spans[2]["attrs"]
+    doc = tr.chrome_trace()
+    card = [ev for ev in doc["traceEvents"] if ev.get("tid") == 1]
+    assert [ev["name"] for ev in card if ev["ph"] == "X"] == [
+        "stage/pipeline/bridges", "stage/tour"]
+    assert [ev["args"]["name"] for ev in doc["traceEvents"]
+            if ev["name"] == "thread_name"] == ["host", "card stream"]
+    x = next(ev for ev in card if ev["name"] == "stage/tour")
+    assert x["ts"] == spans[1]["t0"] * 1e6 and x["dur"] == spans[1]["dur"] * 1e6
+    assert json.loads(json.dumps(doc)) == doc
+
+
+def test_null_tracer_ignores_streams_and_host_syncs():
+    """Tracing off: a stream span and a host sync are the one shared no-op
+    handle; tracing on, ``host_sync`` opens ``sync/<site>``."""
+    null = tobs.NULL_TRACER
+    assert null.span("stage/tour", stream=True) is tobs.NULL_SPAN
+    assert null("stage/tour", stream="cpu") is tobs.NULL_SPAN
+    with tobs.host_sync("h2d") as sp:
+        assert sp is tobs.NULL_SPAN
+    assert null.spans() == []
+    tr = tobs.enable_tracing(tobs.Tracer(clock=_fake_clock()))
+    with tobs.host_sync("round/boruvka"):
+        pass
+    assert [(s["name"], s["attrs"]) for s in tr.spans()] == [
+        ("sync/round/boruvka", {})]
+
+
+def _children(spans, parent):
+    return [s for s in spans if s["parent"] == parent["index"]]
+
+
+@pytest.mark.parametrize("kind, delete", [("bridges", False),
+                                          ("cuts", False),
+                                          ("bridges", True)])
+def test_analyze_spans_the_one_shot_pipeline(kind, delete):
+    """One traced ``analyze`` call on the CPU: the certificate (where the
+    kind has one), the final and its tour state nest in
+    ``stage/pipeline/<kind>`` as stream spans; every round's exit test is
+    a ``sync/round/boruvka``; the copy is ``stage/pad/h2d`` (8 B an
+    edge) inside ``stage/pad``, two ``sync/h2d`` inside it; the answer's
+    copies are ``sync/convert``."""
+    from repro_torch import analyze
+
+    s, d = _graph(6)
+    keys = (s[:2], d[:2]) if delete else None
+    tr = tobs.enable_tracing()
+    analyze(s, d, N, kind=kind, final="device", device="cpu", delete=keys)
+    spans = tr.spans()
+
+    def one(name):
+        found = [x for x in spans if x["name"] == name]
+        assert len(found) == 1, (name, found)
+        return found[0]
+
+    pipe = one(f"stage/pipeline/{kind}")
+    final = one(f"stage/final/{kind}")
+    tour = one("stage/tour")
+    names = [x["name"] for x in _children(spans, pipe)]
+    want = (["stage/tombstone"] if delete else []) + (
+        ["stage/certificate_build/2ec"] if kind == "bridges" else []) + [
+        f"stage/final/{kind}"]
+    assert names == want
+    assert _children(spans, final)[0] is tour
+    for x in [pipe, final, tour] + _children(spans, pipe):
+        assert x["attrs"]["device_t0"] == x["t0"]
+        assert x["attrs"]["device_ms"] == 1e3 * x["dur"]
+    passes = [x for x in spans if x["name"] == "kernel/forest/boruvka"]
+    assert len(passes) == (3 if kind == "bridges" else 2)
+    rounds = [x for x in spans if x["name"] == "sync/round/boruvka"]
+    assert len(rounds) == sum(x["attrs"]["rounds"] for x in passes)
+    assert {x["parent"] for x in rounds} == {x["index"] for x in passes}
+    pad, h2d = one("stage/pad"), one("stage/pad/h2d")
+    assert h2d["parent"] == pad["index"]
+    assert h2d["attrs"] == {"bytes": 8 * len(s)}
+    copies = [x for x in spans if x["name"] == "sync/h2d"]
+    assert len(copies) >= 2
+    assert [x["name"] for x in _children(spans, h2d)] == ["sync/h2d"] * 2
+    convert = one("stage/convert")
+    assert [x["name"] for x in _children(spans, convert)] == (
+        ["sync/convert"] * (3 if kind == "bridges" else 1))
+    syncs = {x["name"] for x in spans if x["name"].startswith("sync/")}
+    assert syncs == {"sync/round/boruvka", "sync/h2d", "sync/convert"}
+    seg = one("kernel/segment_min")
+    assert seg["attrs"]["segments"] == pipe["attrs"]["n_bucket"]
+    assert 0 < seg["attrs"]["live"] <= seg["attrs"]["keys"]
+    assert not any(isinstance(v, torch.Tensor)
+                   for x in spans for v in x["attrs"].values())
