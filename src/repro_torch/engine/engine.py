@@ -94,7 +94,6 @@ from repro_torch.graph.datastructs import (
     ChunkedEdgeStream,
     EdgeList,
     admission_capacity,
-    pad_edges,
     resolve_device,
 )
 from repro_torch.obs import get_metrics, get_tracer
@@ -407,10 +406,10 @@ class BridgeEngine:
         kind = analysis.kind
         tr = get_tracer()
         with tr.span("stage/pad"):
-            # int32 src and dst: 8 B an edge, in two pageable copies
-            with tr.span("stage/pad/h2d", bytes=8 * len(src)):
-                el = EdgeList.upload(src, dst, n_bucket, device=self.device)
-            el = pad_edges(el, cap)
+            # int32 src and dst: 8 B an edge, straight into the bucket
+            with tr.span("stage/pad/h2d", bytes=8 * len(src), staged_bytes=0):
+                el = EdgeList.from_arrays(src, dst, n_bucket, capacity=cap,
+                                          device=self.device)
             args = (el.src, el.dst, el.mask)
             kcap = None
             if delete is not None:

@@ -15,6 +15,8 @@ Two JAX habits need spelling out here, because torch does not share them:
 from __future__ import annotations
 
 import dataclasses
+import threading
+import warnings
 
 import numpy as np
 import torch
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 
-from repro_torch.obs import host_sync
+from repro_torch.obs import get_tracer, host_sync
 
 INT = torch.int32
 INF32 = int(np.iinfo(np.int32).max)
@@ -123,27 +125,118 @@ class EdgeList:
     @staticmethod
     def from_arrays(src, dst, n_nodes: int, capacity: int | None = None,
                     device=None) -> "EdgeList":
-        el = EdgeList.upload(src, dst, n_nodes, device)
-        if capacity is not None and capacity != el.capacity:
-            el = pad_edges(el, capacity)
-        return el
-
-    @staticmethod
-    def upload(src, dst, n_nodes: int, device=None) -> "EdgeList":
-        """The host arrays as int32 on ``device``, every slot real: two
-        pageable copies, each a host sync on the card (``sync/h2d``)."""
+        """The host arrays as int32 on ``device`` in ``capacity`` slots (by
+        default their length): the real edges first, zeros and a False
+        mask after; fewer slots than edges go through ``pad_edges``, which
+        raises on real edge loss. Each id array is one copy straight into
+        its buffer (``copy_ids``)."""
         dev = resolve_device(device)
-        with host_sync("h2d"):
-            src = torch.tensor(np.asarray(src, np.int32), device=dev)
-        with host_sync("h2d"):
-            dst = torch.tensor(np.asarray(dst, np.int32), device=dev)
-        mask = torch.ones(src.shape, dtype=torch.bool, device=dev)
-        return EdgeList(src, dst, mask, n_nodes)
+        src = np.ascontiguousarray(src, np.int32)
+        dst = np.ascontiguousarray(dst, np.int32)
+        m = len(src)
+        if len(dst) != m:
+            raise ValueError(
+                f"from_arrays: {m} sources but {len(dst)} targets")
+        if capacity is not None and capacity < m:
+            return pad_edges(EdgeList.from_arrays(src, dst, n_nodes,
+                                                  device=dev), capacity)
+        cap = m if capacity is None else capacity
+        out = []
+        for ids in (src, dst):
+            buf = torch.empty(cap, dtype=INT, device=dev)
+            copy_ids(buf[:m], ids)
+            buf[m:].zero_()
+            out.append(buf)
+        mask = torch.empty(cap, dtype=torch.bool, device=dev)
+        mask[:m].fill_(True)
+        mask[m:].fill_(False)
+        return EdgeList(out[0], out[1], mask, n_nodes)
 
     def to_numpy(self):
         """Host copy: (src, dst) of the valid edges only."""
         m = self.mask.cpu().numpy()
         return self.src.cpu().numpy()[m], self.dst.cpu().numpy()[m]
+
+
+#: an id array of at least this many ids goes to a CUDA card through the
+#: card's pinned ring; a shorter one, or any to the CPU, is one plain copy
+#: (the size sweep in PERF.md)
+STAGED_MIN_IDS = 1 << 19
+#: ids in one slot of a pinned ring (16 MiB of int32)
+RING_SLOT_IDS = 1 << 22
+#: slots of a pinned ring: the host fills one while the card reads others
+RING_SLOTS = 4
+
+
+def copy_ids(out: torch.Tensor, ids: np.ndarray) -> None:
+    """``ids`` (int32, contiguous) into ``out``, a buffer of as many slots.
+    From ``STAGED_MIN_IDS`` ids up on a CUDA card through the card's pinned
+    ring, which returns before the card has the last chunk (work queued
+    after it on the stream waits for it) and counts the bytes in the open
+    span's ``staged_bytes`` where it has one; otherwise one plain copy, on
+    a card a host sync (``sync/h2d``)."""
+    if not ids.flags.writeable:
+        # torch warns of an array it could write to; it only reads this one
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            host = torch.from_numpy(ids)
+    else:
+        host = torch.from_numpy(ids)
+    if out.device.type == "cuda" and len(ids) >= STAGED_MIN_IDS:
+        _ring(out.device).copy(out, host)
+        get_tracer().count("staged_bytes", 4 * len(ids))
+    else:
+        with host_sync("h2d"):
+            out.copy_(host)
+
+
+class PinnedRing:
+    """Page-locked host slots through which id arrays go to one CUDA card,
+    one chunk a slot: the host copies chunk k + 1 into a slot while the
+    card reads chunk k out of another, on the current stream. A slot is
+    refilled once the event recorded after its last copy has fired; a wait
+    for one that has not is ``sync/h2d``. The lock keeps one caller's
+    chunks from interleaving with another's."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.slots = torch.empty((RING_SLOTS, RING_SLOT_IDS), dtype=INT,
+                                 pin_memory=True)
+        self.events = [torch.cuda.Event() for _ in range(RING_SLOTS)]
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def copy(self, out: torch.Tensor, host: torch.Tensor) -> None:
+        """``host`` (int32 on the CPU) into ``out`` on this card."""
+        stream = torch.cuda.current_stream(self.device)
+        step = self.slots.shape[1]
+        with self.lock:
+            for start in range(0, len(host), step):
+                stop = min(start + step, len(host))
+                k = self.next
+                self.next = (k + 1) % len(self.events)
+                event = self.events[k]
+                if not event.query():
+                    with host_sync("h2d"):
+                        event.synchronize()
+                slot = self.slots[k, :stop - start]
+                slot.copy_(host[start:stop])
+                out[start:stop].copy_(slot, non_blocking=True)
+                event.record(stream)
+
+
+_RINGS: dict[int, PinnedRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def _ring(device: torch.device) -> PinnedRing:
+    """The card's pinned ring, made at its first staged copy (a one-shot
+    entry's warm-up pays for it) and kept for the process."""
+    with _RINGS_LOCK:
+        ring = _RINGS.get(device.index)
+        if ring is None:
+            ring = _RINGS[device.index] = PinnedRing(device)
+        return ring
 
 
 def pad_edges(edges: EdgeList, capacity: int) -> EdgeList:

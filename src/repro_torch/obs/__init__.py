@@ -12,9 +12,11 @@ each (``cardbench/metrics/<name>.py``; "stream" marks a stream span, whose
 waits for the card at its close):
 
 * ``engine/analyze/<kind>``: the request; a container.
-* ``stage/pad`` (``pad_ms``): the upload and the pad to the shape bucket;
-  its child ``stage/pad/h2d`` (``bytes``: 8 a real edge) the two
-  host-to-card copies alone (``h2d_copy_ms``).
+* ``stage/pad`` (``pad_ms``): the upload into the shape bucket's buffers;
+  its child ``stage/pad/h2d`` (``bytes``: 8 a real edge;
+  ``staged_bytes``: those of them sent through the card's pinned ring,
+  ``h2d_staged_pct``) the two copies to the card and the fills of the
+  bucket's tail (``h2d_copy_ms``).
 * ``stage/pipeline/<kind>``, stream and synced (``pipeline_ms``,
   ``pipeline_ms.cuts``, the rooflines' shapes): the one-shot program.
   Inside it, each a stream span with no sync of its own:
@@ -30,8 +32,9 @@ waits for the card at its close):
 * ``stage/convert`` (``convert_ms``): the device answer to the host's set.
 * ``sync/<site>`` (``host_syncs_per_req`` counts them): every place the
   host waits for the card (``host_sync``): ``sync/round/boruvka`` and
-  ``sync/round/sfs`` (a round loop's exit test), ``sync/h2d`` (a pageable
-  copy to the card), ``sync/convert`` (a copy of the answer to the host).
+  ``sync/round/sfs`` (a round loop's exit test), ``sync/h2d`` (a plain
+  copy to the card, or a wait for a slot of the pinned ring),
+  ``sync/convert`` (a copy of the answer to the host).
 
 Other paths (the live engine, the batch, the merge, the scheduler) open
 their own ``engine/*``, ``stage/*``, ``merge/*``, ``sched/*`` and
@@ -84,9 +87,9 @@ def disable_tracing() -> None:
 
 def host_sync(site: str):
     """A context manager around one place where the host waits for the
-    card (a readback, a pageable copy): while tracing, the span
-    ``sync/<site>`` over the wait; otherwise a shared no-op, at the cost
-    of one ``enabled`` check."""
+    card (a readback, a plain copy, a slot of the pinned ring): while
+    tracing, the span ``sync/<site>`` over the wait; otherwise a shared
+    no-op, at the cost of one ``enabled`` check."""
     tr = _TRACER
     if tr.enabled:
         return tr.span("sync/" + site)

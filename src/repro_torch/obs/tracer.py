@@ -28,6 +28,9 @@ boundaries (``repro.obs.tracer``).
   where the value is made.
 * ``Tracer.add(...)`` records a synthetic closed span under a parent
   index (the reference attaches its per-round kernel spans this way).
+* ``Tracer.count(key, n)`` adds ``n`` to a counter that the innermost
+  open span opened (``span(name, key=0)``), so code under the span counts
+  into it without a handle on the span.
 * ``spans()`` lists the closed spans; ``rollup()`` folds them into a
   per-name {count, total, self, max} table; ``stage_rollup()`` keeps the
   outermost stage-classified spans only (``STAGE_PREFIXES``), the
@@ -204,6 +207,13 @@ class Tracer:
 
     def span(self, name: str, *, stream=None, **attrs) -> Span:
         return Span(self, name, attrs, _stream_of(stream))
+
+    def count(self, key: str, n) -> None:
+        """Add ``n`` to the counter ``key`` of the innermost open span, if
+        that span opened one (``span(name, key=0)``)."""
+        attrs = self._stack[-1].attrs if self._stack else {}
+        if key in attrs:
+            attrs[key] += n
 
     def _take_anchor(self, device: torch.device) -> tuple:
         """A new anchor on ``device``, whose stream must be idle: the host
@@ -418,6 +428,9 @@ class NullTracer:
     __call__ = span
 
     def add(self, *args, **kwargs) -> None:
+        return None
+
+    def count(self, key: str, n) -> None:
         return None
 
     def reset(self) -> None:

@@ -38,6 +38,9 @@ from repro_torch.core.partition import partition_edges
 from repro_torch.engine.batched import make_analysis_fn
 from repro_torch.graph import generators as gen
 from repro_torch.graph.datastructs import (
+    RING_SLOT_IDS,
+    RING_SLOTS,
+    STAGED_MIN_IDS,
     EdgeList,
     admission_capacity,
     concat_edges,
@@ -2012,3 +2015,154 @@ def test_stream_spans_close_with_their_synced_pipeline(cuda):
             p = inner[x["parent"]]
             assert x["attrs"]["device_t0"] >= p["attrs"]["device_t0"] - 20e-6
             assert end(x) <= end(p) + 20e-6
+
+
+# ------------------------------------------- the upload's pinned ring
+def _upload_ids(m, form, seed):
+    """Two id arrays of ``m`` ids each: int32, int64 (wrapping as numpy's
+    cast does) or a strided int32 view."""
+    rng = np.random.default_rng(seed)
+    if form == "int64":
+        return rng.integers(-2**40, 2**40, (2, m))
+    width = 2 * m if form == "strided" else m
+    wide = rng.integers(np.iinfo(np.int32).min, INF32, (2, width),
+                        dtype=np.int32)
+    return wide[:, ::2] if form == "strided" else wide
+
+
+def _same_upload(got, want):
+    for a, b in ((got.src, want.src), (got.dst, want.dst),
+                 (got.mask, want.mask)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+UPLOAD_SIZES = {"threshold-1": STAGED_MIN_IDS - 1,
+                "threshold": STAGED_MIN_IDS,
+                "slot-1": RING_SLOT_IDS - 1, "slot": RING_SLOT_IDS,
+                "slot+1": RING_SLOT_IDS + 1,
+                "3slots+17": 3 * RING_SLOT_IDS + 17}
+
+
+@pytest.mark.parametrize("form", ["int32", "int64", "strided"])
+@pytest.mark.parametrize("size", list(UPLOAD_SIZES))
+def test_staged_upload_is_the_plain_one(cuda, size, form):
+    """Into the bucket's buffers on the card, through the pinned ring from
+    the threshold up (the open span counts every byte as staged there, none
+    below): the same bits as the plain upload on the CPU."""
+    from repro_torch import obs
+
+    m = UPLOAD_SIZES[size]
+    src, dst = _upload_ids(m, form, m)
+    cap = admission_capacity(m)
+    tr = obs.enable_tracing()
+    try:
+        with tr.span("upload", staged_bytes=0) as sp:
+            got = EdgeList.from_arrays(src, dst, 7, capacity=cap,
+                                       device=cuda)
+    finally:
+        obs.disable_tracing()
+    assert sp.attrs["staged_bytes"] == (8 * m if m >= STAGED_MIN_IDS else 0)
+    torch.cuda.synchronize()
+    _same_upload(got, EdgeList.from_arrays(src, dst, 7, capacity=cap,
+                                           device="cpu"))
+
+
+def test_staged_uploads_back_to_back_arrive_intact(cuda):
+    """Three staged uploads of different arrays, each of more chunks than
+    the ring has slots, issued with no sync behind a busy stream, the
+    caller's arrays overwritten as each returns: each arrives intact (a
+    slot refilled before the card read it would show)."""
+    m = 3 * RING_SLOT_IDS + 17
+    assert 2 * -(-m // RING_SLOT_IDS) > RING_SLOTS
+    arrays = [_upload_ids(m, "int32", seed) for seed in range(3)]
+    want = [a.copy() for a in arrays]
+    a = torch.randn(8192, 8192, device=cuda)
+    for _ in range(5):  # some 100 ms of work ahead of the copies
+        a = a @ a
+    got = []
+    for ids in arrays:
+        got.append(EdgeList.from_arrays(ids[0], ids[1], 7, device=cuda))
+        ids[:] = -1
+    torch.cuda.synchronize()
+    for el, (s, d) in zip(got, want):
+        assert torch.equal(el.src.cpu(), torch.from_numpy(s))
+        assert torch.equal(el.dst.cpu(), torch.from_numpy(d))
+        assert bool(el.mask.all())
+
+
+def test_staged_uploads_from_many_threads(cuda):
+    """Sixteen threads upload arrays of their own at once, the interpreter
+    switching every 10 us: every one arrives intact."""
+    import threading
+
+    m = RING_SLOT_IDS + 17
+    arrays = [_upload_ids(m, "int32", 100 + i) for i in range(16)]
+    got, errors = [None] * 16, []
+
+    def work(i):
+        try:
+            got[i] = EdgeList.from_arrays(arrays[i][0], arrays[i][1], 7,
+                                          device=cuda)
+        except Exception as exc:  # read back below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == []
+    torch.cuda.synchronize()
+    for el, (s, d) in zip(got, arrays):
+        assert torch.equal(el.src.cpu(), torch.from_numpy(s))
+        assert torch.equal(el.dst.cpu(), torch.from_numpy(d))
+
+
+def _staged_graph():
+    s, d, _ = gen.planted_bridge_graph(3000, 4 * STAGED_MIN_IDS, 5, seed=2)
+    assert len(s) >= STAGED_MIN_IDS
+    return s, d
+
+
+def test_traced_analyze_stages_every_byte(cuda):
+    """Above the threshold the whole copy goes through the ring:
+    ``staged_bytes`` is ``bytes`` on ``stage/pad/h2d``, and the answer is
+    the CPU's."""
+    from repro_torch import obs
+
+    s, d = _staged_graph()
+    want = analyze(s, d, 3000, kind="bridges", device="cpu")
+    tr = obs.enable_tracing()
+    try:
+        got = analyze(s, d, 3000, kind="bridges", device=cuda)
+    finally:
+        obs.disable_tracing()
+    assert got == want
+    h2d = [x["attrs"] for x in tr.spans() if x["name"] == "stage/pad/h2d"]
+    assert h2d == [{"bytes": 8 * len(s), "staged_bytes": 8 * len(s)}]
+
+
+def test_staged_copy_is_pinned_in_the_profile(cuda):
+    """The profiler sees the call's copy to the card as pinned host memory
+    to the device, and no pageable copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, d = _staged_graph()
+    analyze(s, d, 3000, kind="bridges", device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        analyze(s, d, 3000, kind="bridges", device=cuda)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    copies = sorted(n for n in names if "HtoD" in n)
+    print(f"\nhost-to-card copies in the profile: {copies}")
+    assert any("Pinned -> Device" in n for n in copies)
+    assert not any("Pageable" in n for n in copies)

@@ -98,6 +98,56 @@ def test_pad_and_compact_match():
     _same_buffer(jds.concat_edges(jel, jp), tds.concat_edges(tel, tp))
 
 
+def _same_bits(a, b):
+    for x, y in ((a.src, b.src), (a.dst, b.dst), (a.mask, b.mask)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert a.n_nodes == b.n_nodes
+
+
+@pytest.mark.parametrize("m, cap", [
+    (m, cap) for m in (0, 1, 15, 16, 17, 1000)
+    for cap in sorted({m, tds.admission_capacity(m, 1),
+                       2 * tds.admission_capacity(m, 1)})])
+def test_upload_into_the_bucket_is_the_padded_upload(m, cap):
+    """``from_arrays`` with a capacity writes the edges straight into the
+    bucket's buffers: the same bits as the unpadded upload grown by
+    ``pad_edges``, and as the reference's padded buffer."""
+    rng = np.random.default_rng(m)
+    src = rng.integers(0, 50, m).astype(np.int32)
+    dst = rng.integers(0, 50, m).astype(np.int32)
+    got = tds.EdgeList.from_arrays(src, dst, 50, capacity=cap, device="cpu")
+    assert got.capacity == cap
+    _same_bits(got, tds.pad_edges(tds.EdgeList.from_arrays(
+        src, dst, 50, device="cpu"), cap))
+    if m:
+        _same_buffer(jds.EdgeList.from_arrays(src, dst, 50, capacity=cap),
+                     got)
+
+
+@pytest.mark.parametrize("form", ["int64", "strided", "reversed", "list",
+                                  "read-only"])
+def test_upload_converts_ids_as_numpy_does(form):
+    """Any id array goes in as ``np.asarray(x, np.int32)`` reads it."""
+    rng = np.random.default_rng(7)
+    wide = rng.integers(-2**33, 2**33, (2, 2000))
+    ids = {"int64": wide, "strided": wide.astype(np.int32)[:, ::2],
+           "reversed": wide.astype(np.int32)[:, ::-1],
+           "list": (wide[:, :50] % 1000).tolist(),
+           "read-only": wide.astype(np.int32)}[form]
+    if form == "read-only":
+        ids.flags.writeable = False
+    src, dst = ids[0], ids[1]
+    got = tds.EdgeList.from_arrays(src, dst, 7, capacity=4096, device="cpu")
+    m = len(src)
+    for buf, want in ((got.src, src), (got.dst, dst)):
+        assert torch.equal(buf[:m], torch.from_numpy(
+            np.array(np.asarray(want, np.int32))))
+        assert not buf[m:].any()
+    assert bool(got.mask[:m].all()) and not got.mask[m:].any()
+    with pytest.raises(ValueError, match="3 sources but 2 targets"):
+        tds.EdgeList.from_arrays([1, 2, 3], [1, 2], 4, device="cpu")
+
+
 def test_build_csr_matches():
     src, dst, n, _ = bucketed_graph(4, simple=False)
     for a, b in zip(jds.build_csr(src, dst, n), tds.build_csr(src, dst, n)):

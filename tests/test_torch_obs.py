@@ -309,6 +309,24 @@ def test_null_tracer_ignores_streams_and_host_syncs():
         ("sync/round/boruvka", {})]
 
 
+def test_count_adds_to_the_counter_the_innermost_span_opened():
+    """``count`` adds into the innermost open span's counter where that
+    span opened one, and nowhere else; the disabled tracer ignores it."""
+    tr = tobs.Tracer(clock=_fake_clock())
+    tr.count("staged_bytes", 5)  # no span open
+    with tr.span("stage/pad/h2d", bytes=16, staged_bytes=0):
+        tr.count("staged_bytes", 4)
+        with tr.span("sync/h2d"):
+            tr.count("staged_bytes", 100)  # the innermost opened none
+        tr.count("staged_bytes", 8)
+    with tr.span("stage/pad"):
+        tr.count("staged_bytes", 3)
+    assert [(s["name"], s["attrs"]) for s in tr.spans()] == [
+        ("stage/pad/h2d", {"bytes": 16, "staged_bytes": 12}),
+        ("sync/h2d", {}), ("stage/pad", {})]
+    assert tobs.NULL_TRACER.count("staged_bytes", 4) is None
+
+
 def _children(spans, parent):
     return [s for s in spans if s["parent"] == parent["index"]]
 
@@ -321,8 +339,8 @@ def test_analyze_spans_the_one_shot_pipeline(kind, delete):
     kind has one), the final and its tour state nest in
     ``stage/pipeline/<kind>`` as stream spans; every round's exit test is
     a ``sync/round/boruvka``; the copy is ``stage/pad/h2d`` (8 B an
-    edge) inside ``stage/pad``, two ``sync/h2d`` inside it; the answer's
-    copies are ``sync/convert``."""
+    edge, none staged) inside ``stage/pad``, two ``sync/h2d`` inside it;
+    the answer's copies are ``sync/convert``."""
     from repro_torch import analyze
 
     s, d = _graph(6)
@@ -355,7 +373,8 @@ def test_analyze_spans_the_one_shot_pipeline(kind, delete):
     assert {x["parent"] for x in rounds} == {x["index"] for x in passes}
     pad, h2d = one("stage/pad"), one("stage/pad/h2d")
     assert h2d["parent"] == pad["index"]
-    assert h2d["attrs"] == {"bytes": 8 * len(s)}
+    # the CPU takes the plain copy: nothing through a pinned ring
+    assert h2d["attrs"] == {"bytes": 8 * len(s), "staged_bytes": 0}
     copies = [x for x in spans if x["name"] == "sync/h2d"]
     assert len(copies) >= 2
     assert [x["name"] for x in _children(spans, h2d)] == ["sync/h2d"] * 2
