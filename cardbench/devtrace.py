@@ -1,4 +1,4 @@
-"""The traced run's device timeline, from ``torch.profiler``.
+"""A run's device timeline, from ``torch.profiler``.
 
 ``DeviceTrace`` records the card's activity (kernels, copies, fills) over
 the measured window; host activity is not profiled, since recording every
@@ -6,7 +6,8 @@ host operator slows a request several times over. Once the window has
 closed it reduces the raw events:
 
 * ``busy_s``: the union of the card's event intervals inside the window,
-  and ``window_s`` the window's length;
+  and ``window_s`` the window's length (an untraced run reduces the
+  events to ``busy_s()`` alone);
 * ``kernel_s``: device seconds of the events whose name holds a part;
 * ``device_ops``: device seconds by event name, largest first;
 * ``idle_gaps``: the seconds in which the card was idle, summed by what
@@ -28,15 +29,17 @@ import torch
 from cardbench.percentiles import union_length
 
 
-def _device_events(prof):
-    """``(start_ns, end_ns, name)`` of the card's events, without the
-    annotations the profiler mirrors onto the card."""
+def _device_events(prof, named: bool = True):
+    """``(start_ns, end_ns, name)`` of the card's events (the name None
+    where not ``named``), without the annotations the profiler mirrors
+    onto the card."""
     cuda = torch.autograd.DeviceType.CUDA
     out = []
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == cuda and not ev.is_user_annotation():
             start = ev.start_ns()
-            out.append((start, start + ev.duration_ns(), ev.name()))
+            out.append((start, start + ev.duration_ns(),
+                        ev.name() if named else None))
     return out
 
 
@@ -64,17 +67,40 @@ class DeviceTrace:
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self.window_ns = None
         self.offset_ns = None  # Unix ns minus perf_counter ns
+        self.stop_s = None  # the profiler's stop, after the window
         self._summary = None
+        self._busy_s = None
 
     @contextlib.contextmanager
     def window(self):
-        with self._prof:
+        self._prof.start()
+        try:
             torch.cuda.synchronize()
             self.offset_ns = time.time_ns() - time.perf_counter_ns()
             start = time.time_ns()
             yield self
             torch.cuda.synchronize()
             self.window_ns = (start, time.time_ns())
+        finally:
+            t = time.perf_counter()
+            self._prof.stop()
+            self.stop_s = time.perf_counter() - t
+
+    def busy_s(self) -> float:
+        """The union of the card's event intervals inside the window."""
+        if self._busy_s is None:
+            if self._summary is not None:
+                self._busy_s = self._summary["busy_s"]
+            else:
+                self._busy_s = union_length(
+                    [(a, b) for a, b, _ in self._clipped(named=False)]) / 1e9
+        return self._busy_s
+
+    def _clipped(self, named: bool = True) -> list:
+        w0, w1 = self.window_ns
+        return [(max(a, w0), min(b, w1), name)
+                for a, b, name in _device_events(self._prof, named)
+                if b > w0 and a < w1]
 
     def summary(self, spans=()) -> dict:
         """The reduction above; ``spans`` are the program's tracer spans
@@ -85,9 +111,7 @@ class DeviceTrace:
 
     def _reduce(self, spans) -> dict:
         w0, w1 = self.window_ns
-        device = [(max(a, w0), min(b, w1), name)
-                  for a, b, name in _device_events(self._prof)
-                  if b > w0 and a < w1]
+        device = self._clipped()
         by_name: dict[str, float] = {}
         for a, b, name in device:
             by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e9

@@ -15,11 +15,13 @@ adding a file and an entry of ``BENCHMARK.json``, and edits nothing here:
   from a ``Run``, or None where it finds nothing to read.
 
 A run makes the inputs, warms the program, then sends requests in a
-closed loop with one client for ``--seconds`` (``--trace 1`` records the
-program's spans and a profile of the card meanwhile), reads the peak of
-device memory, frees the program's state, judges the answers and prints
-one JSON line. The numbers it compares are printed beside their limits,
-last on standard error and under ``checks``, the result's last key.
+closed loop with one client for ``--seconds`` while the card's own
+activity is profiled (on a card, in every run: the card's time a request
+is read from it; ``--trace 1`` also records the program's spans), reads
+the peak of device memory, frees the program's state, judges the answers
+and prints one JSON line. The numbers it compares are printed beside
+their limits, last on standard error and under ``checks``, the result's
+last key.
 """
 from __future__ import annotations
 
@@ -76,10 +78,11 @@ def resolve_cell(manifest: dict, workload: str, roots=(BENCH_DIR,)) -> Cell:
 @dataclasses.dataclass
 class Run:
     """What a metric reader reads. Times are host-clock seconds; ``spans``
-    are the program's tracer spans and ``trace`` the card's profile, both
-    over the window and only in a traced run; ``launches`` are the
-    program's kernel launches in the window; ``facts`` what the client
-    knows of its inputs (``n_edges``; ``forest_edges``, the reference's)."""
+    are the program's tracer spans over the window, only in a traced run;
+    ``trace`` the card's profile over the window, in every run on a card
+    (None on the CPU); ``launches`` are the program's kernel launches in
+    the window; ``facts`` what the client knows of its inputs
+    (``n_edges``; ``forest_edges``, the reference's)."""
 
     cell: Cell
     setup_s: float
@@ -147,10 +150,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if trace:
         from repro_torch.obs import disable_tracing, enable_tracing
 
+        tracer = enable_tracing()
+    if on_card:
         from cardbench.devtrace import DeviceTrace
 
-        tracer = enable_tracing()
-        profile = DeviceTrace() if on_card else None
+        profile = DeviceTrace()
     launches0 = _launch_counts()
     latencies, answers, failed = [], [], 0
     window = profile.window() if profile else contextlib.nullcontext()
@@ -183,13 +187,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         spans = tracer.spans()
         disable_tracing()
     peak = int(torch.cuda.max_memory_allocated()) if on_card else None
-    if profile is not None:
+    closing = [time.perf_counter()]
+    if profile is not None and trace:
         profile.summary(spans)
+    elif profile is not None:
+        profile.busy_s()
+    closing.append(time.perf_counter())
 
     client.close()
     if on_card:
         torch.cuda.empty_cache()
     checks, facts = client.check(answers)
+    closing.append(time.perf_counter())
+    print(f"after the window: the profiler's stop "
+          f"{profile.stop_s if profile else 0.0:.3f} s, its reduction "
+          f"{closing[1] - closing[0]:.3f} s, the check "
+          f"{closing[2] - closing[1]:.3f} s", file=sys.stderr)
     # a request that raised is never correct, whatever the client judged
     checks = {"failed_requests": {"value": failed, "limit": 0}, **checks}
 
@@ -206,7 +219,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                   c["value"] <= c["limit"] for c in checks.values()),
               "attempted": len(answers), "failed": failed,
               "metrics": metrics, "device": dev}
-    if profile is not None:
+    if trace and profile is not None:
         summary = profile.summary(spans)
         print(f"traced: {len(answers)} requests in {window_s:.3f} s, "
               f"profiled window {summary['window_s']:.3f} s, "

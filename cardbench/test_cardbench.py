@@ -3,10 +3,15 @@ the result line of every traffic mix on a tiny graph, the plain reference
 against the planted truth and networkx, the byte counts, the control, the
 checks against planted faults, and the modules a run holds.
 
-``tiny`` is a configuration these tests add under a root of their own:
-the harness finds it beside the benchmark's own parts."""
+The ``check_*`` rules hold for any manifest, so that a cell joins by
+files and appended entries alone (``test_adding_a_cell.py``). A tiny run
+draws a cell's graph at its configuration's ``tiny`` sizes with its own
+generator, or at ``TINY`` where it has none. ``tiny`` is also a
+configuration these tests add under a root of their own: the harness
+finds it beside the benchmark's own parts."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -18,7 +23,7 @@ import torch
 
 from cardbench import graphs, harness, percentiles, roofline
 from cardbench.control import control_answer, control_run
-from cardbench.parts import BENCH_DIR, find, load_json, names
+from cardbench.parts import BENCH_DIR, find, load_json, load_module, names
 from cardbench.reference import connectivity as reference
 
 ROOT = BENCH_DIR.parent
@@ -38,59 +43,93 @@ def tiny_root(tmp_path):
     return (tmp_path, BENCH_DIR)
 
 
-def tiny_cell(workload: str, roots) -> harness.Cell:
-    manifest = json.loads(json.dumps(MANIFEST))
-    for w in manifest["workloads"]:
-        w["config"] = "tiny"
-    return harness.resolve_cell(manifest, workload, roots)
+def tiny_config(config: dict) -> dict:
+    """A configuration's CPU sizes: its own ``tiny`` object with its own
+    ``graph`` where it carries one, else ``TINY``."""
+    if "tiny" not in config:
+        return dict(TINY)
+    return dict(config["tiny"], name=f"{config['name']}.tiny",
+                graph=config["graph"])
+
+
+def tiny_cell(workload: str, roots, manifest=MANIFEST) -> harness.Cell:
+    cell = harness.resolve_cell(manifest, workload, roots)
+    return dataclasses.replace(cell, config=tiny_config(cell.config))
 
 
 # ------------------------------------------------------------- the manifest
-def test_manifest_keys_and_names():
-    assert set(MANIFEST) == {"command", "paths", "run_seconds", "configs",
-                             "workloads", "end_to_end", "per_layer"}
-    assert MANIFEST["paths"] == ["cardbench"]
-    assert not any(w.startswith("/") or ".." in w
-                   for w in MANIFEST["command"])
-    assert 1 <= MANIFEST["run_seconds"] <= 51
+def check_manifest(m: dict) -> None:
+    """The contract's keys, names and lists, for any manifest: every list
+    of cells names cells of the manifest, and a metric without one is
+    every cell's."""
+    assert set(m) == {"command", "paths", "run_seconds", "configs",
+                      "workloads", "end_to_end", "per_layer"}
+    assert m["paths"] == ["cardbench"]
+    assert not any(w.startswith("/") or ".." in w for w in m["command"])
+    assert 1 <= m["run_seconds"] <= 51
     seen = set()
     for group in ("configs", "workloads", "end_to_end", "per_layer"):
-        for entry in MANIFEST[group]:
+        for entry in m[group]:
             assert NAME.match(entry["name"]), entry["name"]
             assert entry["name"] not in seen
             seen.add(entry["name"])
-    e2e = {m["name"] for m in MANIFEST["end_to_end"]}
+    cells = [w["name"] for w in m["workloads"]]
+    e2e = {e["name"]: e for e in m["end_to_end"]}
     assert "setup_s" in e2e
-    for m in MANIFEST["end_to_end"] + MANIFEST["per_layer"]:
-        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for m in MANIFEST["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25
-        assert m["source"] in ("host_clock", "device_trace")
-    for m in MANIFEST["per_layer"]:
-        assert m["moves"] in e2e
-        assert m["source"] in ("device_trace", "program_span",
-                               "program_counter", "host_clock")
-        for cell in m["workloads"]:
-            moved = next(e for e in MANIFEST["end_to_end"]
-                         if e["name"] == m["moves"])
-            assert cell in moved.get("workloads", CELLS)
+    for metric in m["end_to_end"] + m["per_layer"]:
+        assert UNIT.match(metric["unit"])
+        assert metric["better"] in ("lower", "higher")
+        for cell in metric.get("workloads", cells):
+            assert cell in cells, \
+                f"{metric['name']} lists {cell!r}, which is no cell"
+    for cell in cells:
+        own = {e["name"] for e in m["end_to_end"]
+               if cell in e.get("workloads", cells)}
+        assert "setup_s" in own and len(own) >= 2, cell
+        assert any(cell in e.get("workloads", cells)
+                   for e in m["per_layer"]), cell
+    for metric in m["end_to_end"]:
+        assert 0.01 <= metric["bound"] <= 0.25
+        assert metric["source"] in ("host_clock", "device_trace")
+    for metric in m["per_layer"]:
+        assert metric["moves"] in e2e
+        assert metric["source"] in ("device_trace", "program_span",
+                                    "program_counter", "host_clock")
+        for cell in metric.get("workloads", cells):
+            assert cell in e2e[metric["moves"]].get("workloads", cells)
+
+
+def check_parts(m: dict, roots=(BENCH_DIR,)) -> None:
+    """Every part a manifest names is found by name under ``roots``."""
+    configs = {c["name"] for c in m["configs"]}
+    assert configs <= set(names("configs", roots))
+    for c in m["configs"]:
+        path = find("configs", c["name"], roots)
+        # the file the harness reads, relative to its checkout's root
+        assert path.relative_to(path.parents[2]).as_posix() == c["file"]
+        assert c["file"].startswith("cardbench/")
+        assert isinstance(load_json(path).get("tiny", {}), dict)
+    for w in m["workloads"]:
+        # One process on one card: the harness reads the peak of one
+        # device and starts no process per rank, so a four-chip cell (the
+        # M-machine merge over NCCL across cards) brings those with it.
+        assert w["config"] in configs and w["chips"] == 1
+        traffic = load_json(find("traffic", w["traffic"], roots))
+        assert traffic["client"] in names("clients", roots)
+    assert configs == {w["config"] for w in m["workloads"]}
+    for metric in m["end_to_end"] + m["per_layer"]:
+        assert metric["name"] in names("metrics", roots)
+    for c in configs:
+        graph = load_json(find("configs", c, roots))["graph"]
+        assert graph in names("generators", roots)
+
+
+def test_manifest_keys_and_names():
+    check_manifest(MANIFEST)
 
 
 def test_every_part_is_found_by_name():
-    configs = {c["name"] for c in MANIFEST["configs"]}
-    assert configs <= set(names("configs"))
-    for c in MANIFEST["configs"]:
-        assert (ROOT / c["file"]).is_file()
-        assert c["file"].startswith("cardbench/")
-    for w in MANIFEST["workloads"]:
-        assert w["config"] in configs and w["chips"] == 1
-        traffic = load_json(find("traffic", w["traffic"]))
-        assert traffic["client"] in names("clients")
-    assert configs == {w["config"] for w in MANIFEST["workloads"]}
-    for m in MANIFEST["end_to_end"] + MANIFEST["per_layer"]:
-        assert m["name"] in names("metrics")
-    for c in configs:
-        assert load_json(find("configs", c))["graph"] in names("generators")
+    check_parts(MANIFEST)
 
 
 def test_added_parts_are_listed(tmp_path):
@@ -126,12 +165,26 @@ def test_added_parts_are_listed(tmp_path):
 
 
 # ------------------------------------------------------------- a tiny run
-@pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("workload", CELLS)
-def test_result_line_shape(workload, trace, tiny_root):
-    cell = tiny_cell(workload, tiny_root)
-    result = harness.run_cell(cell, 2**31 + 7, 0.3, bool(trace), "cpu",
-                              roots=tiny_root)
+def tiny_run(cell: harness.Cell, seed: int, trace: int,
+             roots=(BENCH_DIR,), seconds: float = 0.3):
+    """A run of ``cell`` on the CPU, and the kernel launches the program
+    counted in it."""
+    from repro_torch.kernels import launch_counts
+
+    before = sum(launch_counts().values())
+    result = harness.run_cell(cell, seed, seconds, bool(trace), "cpu",
+                              roots=roots)
+    return result, sum(launch_counts().values()) - before
+
+
+def check_result_line(cell: harness.Cell, result: dict, trace: int,
+                      roots=(BENCH_DIR,), launches: int = 0) -> None:
+    """A tiny run's result line, for any cell: correct, its metrics those
+    the cell gets. Traced, some span metric reads, and every span or
+    counter reader whose list names the cell reads something: a metric
+    with no list may find nothing in a cell that lacks its spans. Exempt:
+    readers of the card's profile (``device_trace``), and counter readers
+    on a run that launched no kernel (the CPU runs the plain versions)."""
     assert list(result)[-1] == "checks"
     assert {"correct", "attempted", "failed", "metrics",
             "device"} <= set(result)
@@ -145,11 +198,67 @@ def test_result_line_shape(workload, trace, tiny_root):
         if m["name"] in result["metrics"]:
             assert result["metrics"][m["name"]]["unit"] == m["unit"]
     if trace:
-        spans = {"fig2_dense.oneshot_cuts": "pipeline_ms.cuts"}
-        assert spans.get(workload, "pipeline_ms") in result["metrics"]
+        assert any(m["source"] == "program_span" and
+                   m["name"] in result["metrics"] for m in listed)
+        readers = ("program_span", "program_counter") if launches else (
+            "program_span",)
+        silent = [m["name"] for m in listed
+                  if cell.name in m.get("workloads", ())
+                  and m["source"] in readers
+                  and m["name"] not in result["metrics"]]
+        assert not silent, \
+            f"{cell.name} lists {silent}, which read nothing on its tiny run"
     else:
-        assert {"requests_per_s", "setup_s"} <= set(result["metrics"])
+        # every end-to-end metric on the host's clock reads, save the
+        # card's memory; the card's profile is read on a card alone
+        assert "setup_s" in result["metrics"]
+        assert {m["name"] for m in listed if m["source"] == "host_clock"
+                and m["name"] != "peak_device_bytes"} <= \
+            set(result["metrics"])
     json.dumps(result)
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+@pytest.mark.parametrize("workload", CELLS)
+def test_result_line_shape(workload, trace, tiny_root):
+    cell = tiny_cell(workload, tiny_root)
+    result, launches = tiny_run(cell, 2**31 + 7, trace, tiny_root)
+    check_result_line(cell, result, trace, tiny_root, launches)
+
+
+class _Profile:
+    """A card's profile as a reader sees it."""
+
+    def __init__(self, busy_s: float):
+        self._summary = {"busy_s": busy_s, "window_s": 2.0}
+
+    def summary(self, spans=()):
+        return self._summary
+
+    def busy_s(self):
+        return self._summary["busy_s"]
+
+
+@pytest.mark.parametrize("name, profile, attempted, want", [
+    ("card_ms_per_req", _Profile(0.5), 4, 125.0),
+    ("card_ms_per_req", None, 4, None),
+    ("card_ms_per_req", _Profile(0.5), 0, None),
+    ("requests_per_s", None, 4, 2.0),
+    ("host_requests_per_s", _Profile(0.5), 4, 2.0),
+    ("host_latency_p95_ms", None, 4, 400.0),
+    ("host_latency_p95_ms", None, 0, None),
+])
+def test_window_readers(name, profile, attempted, want):
+    """The readers of the window as a whole: the card's busy time over
+    the requests, none without a profile (the CPU) or a request; the rate
+    and the nearest-rank tail on the host's clock."""
+    cell = harness.resolve_cell(MANIFEST, CELLS[0])
+    run = harness.Run(cell=cell, setup_s=1.0, window_s=2.0,
+                      latencies_s=[0.1, 0.2, 0.3, 0.4][:attempted],
+                      attempted=attempted, failed=0, peak_bytes=None,
+                      launches={}, facts={}, trace=profile)
+    got = load_module(find("metrics", name)).read(run)
+    assert got == (None if want is None else pytest.approx(want))
 
 
 def test_cuda_wanted_without_a_card(monkeypatch, capsys):
@@ -349,19 +458,14 @@ def test_a_request_that_raises_is_not_correct(tiny_root):
 def test_a_run_holds_no_jax_and_no_reference_package(tmp_path):
     """In a fresh interpreter: a tiny run leaves no ``jax``, ``jaxlib``,
     ``flax`` or ``repro`` module (top-level names compared whole)."""
-    (tmp_path / "configs").mkdir()
-    (tmp_path / "configs" / "tiny.json").write_text(json.dumps(TINY))
     script = (
         "import json, sys\n"
         f"sys.path[0:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
         "from cardbench import harness\n"
-        f"roots = ({str(tmp_path)!r}, harness.BENCH_DIR)\n"
-        "m = harness.load_json(harness.MANIFEST)\n"
-        "for w in m['workloads']:\n"
-        "    w['config'] = 'tiny'\n"
-        "for w in m['workloads']:\n"
-        "    cell = harness.resolve_cell(m, w['name'], roots)\n"
-        "    r = harness.run_cell(cell, 4, 0.2, True, 'cpu', roots=roots)\n"
+        "from cardbench.test_cardbench import CELLS, tiny_cell\n"
+        "for name in CELLS:\n"
+        "    cell = tiny_cell(name, (harness.BENCH_DIR,))\n"
+        "    r = harness.run_cell(cell, 4, 0.2, True, 'cpu')\n"
         "    assert r['correct'], r\n"
         "print(json.dumps(harness.forbidden_modules()))\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -403,6 +507,20 @@ def test_tiny_cell_on_the_card(workload, card, tiny_root):
     assert result["correct"] is True
     assert result["device"]["platform"] == "gpu"
     assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", CELLS)
+def test_untraced_tiny_cell_reads_the_card_time(workload, card, tiny_root):
+    """An untraced run on the card profiles the card alone, and reads
+    its busy milliseconds a request from that profile."""
+    cell = tiny_cell(workload, tiny_root)
+    result = harness.run_cell(cell, 2**31 + 98, 0.5, False, card,
+                              roots=tiny_root)
+    assert result["correct"] is True
+    ms = result["metrics"]["card_ms_per_req"]["value"]
+    assert 0 < ms <= 1e3 * 0.6 * 2 / result["attempted"]
+    assert "busy_s" not in result["device"] and "breakdown" not in result
 
 
 def test_spread_summary():

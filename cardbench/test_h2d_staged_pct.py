@@ -2,13 +2,11 @@
 traced tiny run of every cell on the CPU, where nothing is staged."""
 from __future__ import annotations
 
-import json
-
 import pytest
 
 from cardbench import harness
 from cardbench.parts import BENCH_DIR, find, load_module
-from cardbench.test_cardbench import CELLS, MANIFEST, TINY, tiny_cell
+from cardbench.test_cardbench import CELLS, MANIFEST, tiny_cell
 
 read = load_module(find("metrics", "h2d_staged_pct")).read
 
@@ -44,14 +42,10 @@ def test_staged_share_of_the_copied_bytes(spans, want):
 
 
 @pytest.mark.parametrize("workload", CELLS)
-def test_traced_tiny_run_stages_nothing_on_the_cpu(workload, tmp_path):
+def test_traced_tiny_run_stages_nothing_on_the_cpu(workload):
     """The CPU takes the plain copy: a traced tiny run reads 0."""
-    (tmp_path / "configs").mkdir()
-    (tmp_path / "configs" / "tiny.json").write_text(json.dumps(TINY))
-    roots = (tmp_path, BENCH_DIR)
-    cell = tiny_cell(workload, roots)
-    cell.per_layer.append({"name": "h2d_staged_pct", "unit": "%"})
-    result = harness.run_cell(cell, 2**31 + 13, 0.3, True, "cpu",
-                              roots=roots)
+    cell = tiny_cell(workload, (BENCH_DIR,))
+    assert "h2d_staged_pct" in {m["name"] for m in cell.per_layer}
+    result = harness.run_cell(cell, 2**31 + 13, 0.3, True, "cpu")
     assert result["correct"] is True, result["checks"]
     assert result["metrics"]["h2d_staged_pct"] == {"value": 0.0, "unit": "%"}

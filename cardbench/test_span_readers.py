@@ -2,30 +2,22 @@
 (``certificate_ms``, ``final_ms``, ``tour_ms``, ``h2d_copy_ms``,
 ``host_syncs_per_req``): each on a made-up ``harness.Run``, where it finds
 its spans and where it finds none, then a traced tiny run of every cell on
-the CPU, which reports those its cell lists. On the card (``gpu``): the
+the CPU, which reports those whose spans its traffic opens or whose list
+names it. On the card (``gpu``): the
 profiler's clock as ``devtrace`` maps the program's spans onto it."""
 from __future__ import annotations
 
-import json
 import statistics
 
 import pytest
 import torch
 
 from cardbench import harness
-from cardbench.parts import BENCH_DIR, find, load_module
-from cardbench.test_cardbench import CELLS, MANIFEST, TINY, tiny_cell
+from cardbench.parts import BENCH_DIR, find, load_json, load_module
+from cardbench.test_cardbench import CELLS, MANIFEST, tiny_cell
 
 NEW = ("certificate_ms", "final_ms", "tour_ms", "h2d_copy_ms",
        "host_syncs_per_req")
-
-
-@pytest.fixture
-def tiny_root(tmp_path):
-    """A root holding ``test_cardbench``'s ``tiny`` configuration."""
-    (tmp_path / "configs").mkdir()
-    (tmp_path / "configs" / "tiny.json").write_text(json.dumps(TINY))
-    return (tmp_path, BENCH_DIR)
 
 
 def _reader(name):
@@ -85,34 +77,85 @@ def test_reader_value_and_none_without_its_spans(name, want):
     assert read(_run(SPANS, attempted=0)) is None
 
 
-def test_new_metrics_are_listed_where_their_spans_are():
-    entries = {m["name"]: m for m in MANIFEST["per_layer"]}
-    bridges = [c for c in CELLS if c.endswith("oneshot_bridges")]
-    assert entries["certificate_ms"]["workloads"] == bridges
+def _is_certificate_ms(name: str) -> bool:
+    """``certificate_ms`` or an entry of its own name for later cells
+    (``certificate_ms.<suffix>``), whose list an accepted entry's is not."""
+    return name == "certificate_ms" or name.startswith("certificate_ms.")
+
+
+def check_span_lists(m: dict, roots=(BENCH_DIR,)) -> None:
+    """The five readers' entries, for any manifest: each once. The
+    certificate's time is read on the cells whose traffic is a bridge
+    analysis on the device final, each listed by ``certificate_ms`` or an
+    entry ``certificate_ms.<suffix>``, and only on bridge analyses (the
+    one-shot path builds no certificate for the vertex kinds' device
+    final). The other four carry no list: a cell without their spans
+    reads nothing for them."""
+    listed = [e["name"] for e in m["per_layer"]]
+    for name in NEW:
+        assert listed.count(name) == 1, name
+    cells = {w["name"]: w for w in m["workloads"]}
+    traffic = {c: load_json(find("traffic", w["traffic"], roots))
+               for c, w in cells.items()}
+    timed = set()
+    for e in m["per_layer"]:
+        if _is_certificate_ms(e["name"]):
+            timed |= set(e.get("workloads", cells))
+    for cell in timed:
+        assert traffic[cell].get("kind") == "bridges", cell
+    for cell, t in traffic.items():
+        if (t.get("client"), t.get("kind"), t.get("final")) == (
+                "oneshot", "bridges", "device"):
+            assert cell in timed, \
+                f"no certificate_ms entry lists the bridge cell {cell}"
+    entries = {e["name"]: e for e in m["per_layer"]}
     for name in NEW[1:]:
-        assert entries[name]["workloads"] == CELLS
-    assert [m["name"] for m in MANIFEST["per_layer"]][-len(NEW):] == list(NEW)
+        assert "workloads" not in entries[name], name
+
+
+def spans_of(traffic: dict) -> set:
+    """Those of the four listless readers whose spans every call of
+    ``traffic`` opens: the copy and the host syncs on the one-shot path,
+    and the final and its tour on its device final."""
+    if traffic.get("client") != "oneshot":
+        return set()
+    if traffic.get("final") == "device":
+        return {"final_ms", "tour_ms", "h2d_copy_ms", "host_syncs_per_req"}
+    return {"h2d_copy_ms", "host_syncs_per_req"}
+
+
+def check_new_metrics(cell: harness.Cell, result: dict) -> None:
+    """A traced tiny run reports those of the five that the cell gets and
+    whose spans it has (its list names it, or its traffic opens them),
+    each above 0 wherever read, in their relations."""
+    gets = {m["name"]: m for m in cell.per_layer if m["name"] in NEW}
+    named = {n for n, m in gets.items() if cell.name in m.get("workloads",
+                                                                 ())}
+    want = set(gets) & (named | spans_of(cell.traffic))
+    got = result["metrics"]
+    assert want <= set(got), want - set(got)
+    for name in set(gets) & set(got):
+        assert got[name]["value"] > 0, name
+    if "host_syncs_per_req" in want:
+        # rounds, two copies, and one copy of the answer per buffer at least
+        assert got["host_syncs_per_req"]["value"] >= 4
+    if {"certificate_ms", "final_ms", "pipeline_ms"} <= set(got):
+        assert (got["certificate_ms"]["value"] + got["final_ms"]["value"]
+                <= got["pipeline_ms"]["value"] * 1.001)
+    if {"tour_ms", "final_ms"} <= set(got):
+        assert got["tour_ms"]["value"] <= got["final_ms"]["value"]
+
+
+def test_new_metrics_are_listed_where_their_spans_are():
+    check_span_lists(MANIFEST)
 
 
 @pytest.mark.parametrize("workload", CELLS)
-def test_traced_tiny_run_reports_the_new_metrics(workload, tiny_root):
-    cell = tiny_cell(workload, tiny_root)
-    result = harness.run_cell(cell, 2**31 + 11, 0.3, True, "cpu",
-                              roots=tiny_root)
+def test_traced_tiny_run_reports_the_new_metrics(workload):
+    cell = tiny_cell(workload, (BENCH_DIR,))
+    result = harness.run_cell(cell, 2**31 + 11, 0.3, True, "cpu")
     assert result["correct"] is True, result["checks"]
-    listed = {m["name"] for m in cell.per_layer} & set(NEW)
-    assert listed == set(NEW) - (
-        {"certificate_ms"} if workload.endswith("cuts") else set())
-    got = result["metrics"]
-    assert listed <= set(got)
-    for name in listed:
-        assert got[name]["value"] > 0
-    # rounds, two copies, and one copy of the answer per buffer at least
-    assert got["host_syncs_per_req"]["value"] >= 4
-    if "certificate_ms" in got:
-        assert (got["certificate_ms"]["value"] + got["final_ms"]["value"]
-                <= got["pipeline_ms"]["value"] * 1.001)
-    assert got["tour_ms"]["value"] <= got["final_ms"]["value"]
+    check_new_metrics(cell, result)
 
 
 # ------------------------------------------------------------- the card
