@@ -21,10 +21,11 @@ follow. So the batch runs as ONE DISJOINT-UNION PASS
    ``device_input="full"`` kinds on the row's own buffer).
 
 The three stages run in the spans ``stage/union``,
-``stage/certificate_build/<name>`` and ``stage/final/<kind>``. The
-one-graph program (``make_analysis_fn``) opens the same names as stream
-spans, with ``stage/tour`` inside ``stage/final/<kind>`` and
-``stage/tombstone`` before them.
+``stage/certificate_build/<name>`` and ``stage/final/<kind>``, each row's
+kind function inside the last in ``stage/answer/<kind>``. The one-graph
+program (``make_analysis_fn``) opens the same names as stream spans, with
+``stage/tour`` then ``stage/answer/<kind>`` inside ``stage/final/<kind>``
+and ``stage/tombstone`` before them.
 
 This equals the vmapped reference slot for slot: compaction is stable in
 slot order; a Borůvka round picks each component's minimum slot and breaks
@@ -285,8 +286,9 @@ def make_analysis_fn(n_nodes: int, kind: str = "bridges",
         with tr.span(f"stage/final/{analysis.kind}", stream=dev):
             with tr.span("stage/tour", stream=dev):
                 st = tour_state(buf.src, buf.dst, buf.mask, n_nodes)
-            return analysis.device_fn(buf.src, buf.dst, buf.mask, n_nodes,
-                                      st, out_cap)
+            with tr.span(f"stage/answer/{analysis.kind}", stream=dev):
+                return analysis.device_fn(buf.src, buf.dst, buf.mask,
+                                          n_nodes, st, out_cap)
 
     return one
 
@@ -344,7 +346,9 @@ def make_batched_pipeline(n_nodes: int, final: str = "device", on_trace=None,
             out = []
             for s, d, m in zip(*rows):
                 st = tour_state(s, d, m, n_nodes)
-                out.append(analysis.device_fn(s, d, m, n_nodes, st, out_cap))
+                with tr.span(f"stage/answer/{analysis.kind}"):
+                    out.append(analysis.device_fn(s, d, m, n_nodes, st,
+                                                  out_cap))
             return sp.sync(_stack_rows(out))
 
     return batched

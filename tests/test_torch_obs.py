@@ -333,14 +333,16 @@ def _children(spans, parent):
 
 @pytest.mark.parametrize("kind, delete", [("bridges", False),
                                           ("cuts", False),
-                                          ("bridges", True)])
+                                          ("bridges", True),
+                                          ("2ecc", False)])
 def test_analyze_spans_the_one_shot_pipeline(kind, delete):
     """One traced ``analyze`` call on the CPU: the certificate (where the
-    kind has one), the final and its tour state nest in
-    ``stage/pipeline/<kind>`` as stream spans; every round's exit test is
-    a ``sync/round/boruvka``; the copy is ``stage/pad/h2d`` (8 B an
-    edge, none staged) inside ``stage/pad``, two ``sync/h2d`` inside it;
-    the answer's copies are ``sync/convert``."""
+    kind has one), the final, its tour state and then the kind's own
+    function (``stage/answer/<kind>``) nest in ``stage/pipeline/<kind>``
+    as stream spans; every round's exit test is a ``sync/round/boruvka``;
+    the copy is ``stage/pad/h2d`` (8 B an edge, none staged) inside
+    ``stage/pad``, two ``sync/h2d`` inside it; the answer's copies are
+    ``sync/convert``."""
     from repro_torch import analyze
 
     s, d = _graph(6)
@@ -357,17 +359,26 @@ def test_analyze_spans_the_one_shot_pipeline(kind, delete):
     pipe = one(f"stage/pipeline/{kind}")
     final = one(f"stage/final/{kind}")
     tour = one("stage/tour")
+    answer = one(f"stage/answer/{kind}")
+    certified = kind in ("bridges", "2ecc")
     names = [x["name"] for x in _children(spans, pipe)]
     want = (["stage/tombstone"] if delete else []) + (
-        ["stage/certificate_build/2ec"] if kind == "bridges" else []) + [
+        ["stage/certificate_build/2ec"] if certified else []) + [
         f"stage/final/{kind}"]
     assert names == want
-    assert _children(spans, final)[0] is tour
-    for x in [pipe, final, tour] + _children(spans, pipe):
+    assert _children(spans, final) == [tour, answer]
+    for x in [pipe, final, tour, answer] + _children(spans, pipe):
         assert x["attrs"]["device_t0"] == x["t0"]
         assert x["attrs"]["device_ms"] == 1e3 * x["dur"]
+    # ``final_ms`` sums the spans under ``stage/final/``: the final alone
+    assert [x for x in spans if x["name"].startswith("stage/final/")] == [
+        final]
     passes = [x for x in spans if x["name"] == "kernel/forest/boruvka"]
-    assert len(passes) == (3 if kind == "bridges" else 2)
+    # the certificate's two forests, the tour's; cuts' aux components and
+    # 2ecc's components less the bridges inside the answer
+    assert len(passes) == {"bridges": 3, "cuts": 2, "2ecc": 4}[kind]
+    if kind != "bridges":
+        assert passes[-1]["parent"] == answer["index"]
     rounds = [x for x in spans if x["name"] == "sync/round/boruvka"]
     assert len(rounds) == sum(x["attrs"]["rounds"] for x in passes)
     assert {x["parent"] for x in rounds} == {x["index"] for x in passes}
